@@ -1,0 +1,38 @@
+"""nbody_streams_tpu_torch — the direct N-body framework on PyTorch + CUDA.
+
+The port of ``nbody_streams_tpu`` (JAX/Pallas on a TPU) to PyTorch with
+hand-written CUDA kernels for NVIDIA Hopper GPUs.  It keeps the JAX
+package's module names and public surface, and imports neither jax nor the
+JAX package.  This slice covers the direct-summation KDK path:
+``run_simulation(method='direct')`` down to the all-pairs kernels in
+``csrc/direct.cu``, which are built with nvcc at first use.
+"""
+from .__version__ import __version__
+from .constants import G_DEFAULT, NBODY_UNITS, KERNEL_IDS
+from .species import Species, PerformanceWarning
+from .ops import (
+    DirectGravity,
+    compute_forces_direct,
+    compute_potential_direct,
+)
+from .ic import make_plummer_sphere, place_on_orbit
+from .run import run_nbody
+from .sim import run_simulation
+from .nbody_io import ParticleReader
+
+__all__ = [
+    "__version__",
+    "G_DEFAULT",
+    "NBODY_UNITS",
+    "KERNEL_IDS",
+    "Species",
+    "PerformanceWarning",
+    "run_simulation",
+    "run_nbody",
+    "ParticleReader",
+    "make_plummer_sphere",
+    "place_on_orbit",
+    "DirectGravity",
+    "compute_forces_direct",
+    "compute_potential_direct",
+]

@@ -1,0 +1,504 @@
+"""Hand-written CUDA all-pairs forces and potentials, and their host side.
+
+Counterpart of ``nbody_streams_tpu/ops/pallas_direct.py``.  Two kernels in
+``csrc/direct.cu`` carry the direct-summation path:
+
+* ``direct_tile_kernel`` (``_direct_tile``): every target against every
+  source, five softening laws, acceleration or potential, Kahan across
+  staged source tiles on or off, and optionally ``skip_band``: each target
+  tile leaves out its band of near source rows.  It replaces the TPU's
+  ``_direct_kernel``.
+* ``band_kernel`` (``_band``): the full spline over exactly those band
+  rows.  It replaces the TPU's ``_band_kernel``.
+
+Beside each wrapper is its plain torch version (``_direct_tile_reference``,
+``_band_reference``), with the same masking and Kahan grouping.  A wrapper
+runs the plain version only for tensors on the CPU; for a CUDA tensor it
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+
+The host side mirrors the TPU path: for the spline at N >= 16384 the
+particles are sorted along x (``slab_sort_key``), a band window of source
+rows is found for each target tile, and when every window fits the static
+band width ``nb`` the Newtonian base pass (``skip_band``) plus the spline
+band pass run; otherwise the single-pass spline kernel does.  Every pair is
+evaluated exactly once with its exact factor either way.  Sums stay in the
+s*dx form (the TPU's matrix-unit moment forms are not ported).
+
+Masses arrive pre-multiplied by G.  Pair rule ``h_eff = max(h_i, h_j)``
+and ``eps2`` regularisation match ``ops/pairwise.py`` (the oracle).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..constants import KERNEL_IDS, PAIRWISE_EPS2, validate_kernel
+from .pairwise import kahan_add
+
+__all__ = ["cuda_accel", "cuda_potential", "cuda_accel_2set",
+           "cuda_potential_2set", "uses_spatial_sort", "slab_sort_key",
+           "LAUNCHES", "BRANCHES"]
+
+# Band geometry of the sorted path: targets per band tile and sources per
+# band row.  The band tile bounds each target's window of near source rows;
+# both must be multiples of BLOCK.
+TM = 512
+TN = 512
+# Targets per CUDA block and sources per staged tile (csrc/direct.cu).
+BLOCK = 64
+
+#: Kernel launches, counted by the wrappers where they launch (plain ints).
+LAUNCHES = {"direct": 0, "band": 0}
+#: Which branch the sorted path took (two-pass or single-pass fallback).
+BRANCHES = {"two_pass": 0, "single_pass": 0}
+
+_MODES = {"acc": 0, "pot": 1}
+
+
+# ---------------------------------------------------------------------------
+# Pair factors from the per-particle softening quantity (see _soft_pre)
+# ---------------------------------------------------------------------------
+
+def _force_pre(kind, r2, pre):
+    """Force factor with the pair quantity ``pre`` (csrc force_pre)."""
+    if kind == "plummer":
+        inv = torch.rsqrt(r2 + pre)
+        return inv * inv * inv
+    if kind == "dehnen_k1":
+        inv = torch.rsqrt(r2 + pre)
+        inv_d = inv * inv
+        inv_d32 = inv_d * inv
+        return inv_d32 + 1.5 * pre * (inv_d32 * inv_d)
+    if kind == "dehnen_k2":
+        inv = torch.rsqrt(r2 + pre)
+        inv_d = inv * inv
+        inv_d32 = inv_d * inv
+        inv_d52 = inv_d32 * inv_d
+        return (inv_d32 + 1.5 * pre * inv_d52
+                + 3.75 * (pre * pre) * (inv_d52 * inv_d))
+    if kind == "newtonian":
+        inv = torch.rsqrt(r2)
+        return inv * inv * inv
+    if kind == "spline":
+        # pre = 1/h (inf for h == 0: q = inf selects the Newtonian branch)
+        inv_r = torch.rsqrt(r2)
+        r = r2 * inv_r
+        newton = inv_r * inv_r * inv_r
+        h3inv = pre * pre * pre
+        q = r * pre
+        q2 = q * q
+        inner = h3inv * (q2 * (32.0 * q - 38.4) + 10.666666666666666)
+        outer = h3inv * (
+            21.333333333333333
+            + q * (-48.0 + q * (38.4 - 10.666666666666667 * q))
+        ) - 0.0666666666666667 * newton
+        soft = torch.where(q <= 0.5, inner, outer)
+        return torch.where(q >= 1.0, newton, soft)
+    raise ValueError(kind)
+
+
+def _pot_pre(kind, r2, pre):
+    """Potential factor with the pair quantity ``pre`` (csrc pot_pre)."""
+    if kind == "plummer":
+        return -torch.rsqrt(r2 + pre)
+    if kind == "dehnen_k1":
+        inv = torch.rsqrt(r2 + pre)
+        return -inv - 0.5 * pre * (inv * inv * inv)
+    if kind == "dehnen_k2":
+        inv = torch.rsqrt(r2 + pre)
+        inv_d32 = inv * inv * inv
+        inv_d52 = inv_d32 * inv * inv
+        return -inv - 0.5 * pre * inv_d32 - 0.375 * (pre * pre) * inv_d52
+    if kind == "newtonian":
+        return -torch.rsqrt(r2)
+    if kind == "spline":
+        inv_r = torch.rsqrt(r2)
+        r = r2 * inv_r
+        q = r * pre
+        q2 = q * q
+        # q^2 nesting of the inner branch (see ops/kernels.py)
+        inner = (-2.8 + q2 * (5.333333333333333
+                              + q2 * (6.4 * q - 9.6))) * pre
+        outer = (
+            -3.2
+            + q2 * (10.666666666666666
+                    + q * (-16.0 + q * (9.6 - 2.1333333333333333 * q)))
+        ) * pre + 0.06666666666666667 * inv_r
+        soft = torch.where(q <= 0.5, inner, outer)
+        return torch.where(q >= 1.0, -inv_r, soft)
+    raise ValueError(kind)
+
+
+def _pair_pre(kind, pre_t, pre_s):
+    # h_eff = max(h_i, h_j): min of 1/h for the spline, max of h^2 otherwise
+    if kind == "spline":
+        return torch.minimum(pre_t, pre_s)
+    return torch.maximum(pre_t, pre_s)
+
+
+def _soft_pre(kind, h):
+    """Per-particle softening quantity: 1/h (inf for h = 0) for the
+    spline, h^2 otherwise."""
+    if kind == "spline":
+        return torch.where(h > 0, 1.0 / h, torch.inf)
+    return h * h
+
+
+# ---------------------------------------------------------------------------
+# Operand layout shared by the kernels and their plain versions
+# ---------------------------------------------------------------------------
+
+def _targets(pos, pre):
+    """(4, nt) float32 rows x, y, z, pre."""
+    return torch.cat([pos.T, pre[None, :]]).to(torch.float32).contiguous()
+
+
+def _sources(pos, gmass, pre, tn):
+    """(5, ns_pad) float32 rows x, y, z, G*m, pre, zero-padded to a
+    multiple of ``tn`` (zero mass contributes exactly nothing)."""
+    n = pos.shape[0]
+    ns_pad = -(-n // tn) * tn
+    src = torch.zeros((5, ns_pad), dtype=torch.float32, device=pos.device)
+    src[:3, :n] = pos.T
+    src[3, :n] = gmass
+    src[4, :n] = pre
+    return src
+
+
+def _check_geometry(tm, tn):
+    if tm <= 0 or tn <= 0 or tm % BLOCK or tn % BLOCK:
+        raise ValueError(f"tm={tm} and tn={tn} must be positive multiples "
+                         f"of {BLOCK}")
+
+
+def _check_operands(tgt, src, start, nb, tm, tn):
+    _check_geometry(tm, tn)
+    for name, t, rows in (("tgt", tgt, 4), ("src", src, 5)):
+        if (t.dtype != torch.float32 or t.ndim != 2 or t.shape[0] != rows
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"({rows}, n) tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if src.device != tgt.device:
+        raise ValueError("tgt and src must be on one device")
+    if src.shape[1] % (tn if nb else BLOCK):
+        raise ValueError(f"source count {src.shape[1]} must be a multiple of "
+                         f"{tn if nb else BLOCK}")
+    if nb:
+        n_tiles = -(-tgt.shape[1] // tm)
+        if (start is None or start.dtype != torch.int32
+                or start.device != tgt.device or not start.is_contiguous()
+                or start.shape != (n_tiles,)):
+            raise ValueError(f"start must be a contiguous int32 ({n_tiles},) "
+                             "tensor on the operands' device")
+        if nb * tn > src.shape[1]:
+            raise ValueError(f"band of {nb} rows exceeds the sources")
+
+
+def _kernel_lib():
+    from . import _build
+
+    lib = _build.library()
+    if lib.nbody_block_size() != BLOCK:
+        raise RuntimeError(f"kernel library BLOCK {lib.nbody_block_size()} "
+                           f"!= {BLOCK}")
+    return lib
+
+
+def _kahan_step(total, comp, part, kahan, keep=None):
+    """One accumulation step (Kahan two-sum or plain); ``keep`` (bool,
+    broadcastable) leaves rows untouched where False, as a skipped tile."""
+    t, c = kahan_add(total, comp, part) if kahan else (total + part, comp)
+    if keep is None:
+        return t, c
+    return torch.where(keep, t, total), torch.where(keep, c, comp)
+
+
+# ---------------------------------------------------------------------------
+# direct_tile_kernel and its plain version
+# ---------------------------------------------------------------------------
+
+def _direct_tile_reference(tgt, src, kind, mode, kahan, eps2,
+                           mask_self=False, nb=0, start=None, tm=TM, tn=TN):
+    """Plain torch version of ``direct_tile_kernel``: all targets at once,
+    one staged tile of BLOCK sources per step, plain fp32 within the tile
+    and Kahan across tiles; with ``nb`` the tiles inside each target
+    tile's band ``[start*tn, (start+nb)*tn)`` are left out."""
+    nt, ns = tgt.shape[1], src.shape[1]
+    xt, yt, zt, pt = (tgt[k][:, None] for k in range(4))
+    width = 3 if mode == "acc" else 1
+    total = torch.zeros((nt, width), dtype=tgt.dtype, device=tgt.device)
+    comp = torch.zeros_like(total)
+    i = torch.arange(nt, device=tgt.device)[:, None]
+    lane = torch.arange(BLOCK, device=tgt.device)[None, :]
+    if nb:
+        lo = start.to(torch.int64)[i // tm] * tn
+        hi = lo + nb * tn
+    for j0 in range(0, ns, BLOCK):
+        xs, ys, zs, gm, ps = (src[k, j0:j0 + BLOCK][None, :]
+                              for k in range(5))
+        dx, dy, dz = xs - xt, ys - yt, zs - zt
+        r2 = dx * dx + (dy * dy + (dz * dz + eps2))
+        pre = _pair_pre(kind, pt, ps)
+        if mode == "acc":
+            s = gm * _force_pre(kind, r2, pre)
+            part = torch.stack([(s * dx).sum(1), (s * dy).sum(1),
+                                (s * dz).sum(1)], dim=1)
+        else:
+            s = gm * _pot_pre(kind, r2, pre)
+            if mask_self:
+                s = torch.where(i == j0 + lane, 0.0, s)
+            part = s.sum(1, keepdim=True)
+        keep = ((j0 < lo) | (j0 >= hi)) if nb else None
+        total, comp = _kahan_step(total, comp, part, kahan, keep)
+    return total if mode == "acc" else total[:, 0]
+
+
+def _direct_tile(tgt, src, kind, mode, kahan, eps2, mask_self=False, nb=0,
+                 start=None, tm=TM, tn=TN):
+    """All-pairs sum of ``tgt`` (4, nt) against ``src`` (5, ns) through
+    ``direct_tile_kernel``; (nt, 3) for acc, (nt,) for pot."""
+    validate_kernel(kind)
+    _check_operands(tgt, src, start, nb, tm, tn)
+    if not tgt.is_cuda:
+        return _direct_tile_reference(tgt, src, kind, mode, kahan, eps2,
+                                      mask_self, nb, start, tm, tn)
+    from . import _build
+
+    nt, ns = tgt.shape[1], src.shape[1]
+    out = torch.empty((nt, 3) if mode == "acc" else (nt,),
+                      dtype=torch.float32, device=tgt.device)
+    with torch.cuda.device(tgt.device):
+        rc = _kernel_lib().nbody_direct(
+            KERNEL_IDS[kind], _MODES[mode], int(kahan), int(nb),
+            tgt.data_ptr(), nt, src.data_ptr(), ns,
+            None if start is None else start.data_ptr(), tm, tn,
+            int(mask_self), float(eps2), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "direct_tile_kernel")
+    LAUNCHES["direct"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# band_kernel and its plain version
+# ---------------------------------------------------------------------------
+
+def _band_reference(tgt, src, start, mode, kahan, eps2, mask_self, tm, tn,
+                    nb):
+    """Plain torch version of ``band_kernel``: for each target, the full
+    spline over the ``nb`` source rows of ``tn`` from its tile's
+    ``start``; plain fp32 within a row, Kahan across rows."""
+    nt = tgt.shape[1]
+    xt, yt, zt, pt = (tgt[k][:, None] for k in range(4))
+    width = 3 if mode == "acc" else 1
+    total = torch.zeros((nt, width), dtype=tgt.dtype, device=tgt.device)
+    comp = torch.zeros_like(total)
+    i = torch.arange(nt, device=tgt.device)
+    row0 = start.to(torch.int64)[i // tm]
+    lane = torch.arange(tn, device=tgt.device)[None, :]
+    for b in range(nb):
+        j = ((row0 + b) * tn)[:, None] + lane           # (nt, tn)
+        xs, ys, zs, gm, ps = (src[k][j] for k in range(5))
+        dx, dy, dz = xs - xt, ys - yt, zs - zt
+        r2 = dx * dx + (dy * dy + (dz * dz + eps2))
+        pre = torch.minimum(pt, ps)
+        if mode == "acc":
+            s = gm * _force_pre("spline", r2, pre)
+            part = torch.stack([(s * dx).sum(1), (s * dy).sum(1),
+                                (s * dz).sum(1)], dim=1)
+        else:
+            s = gm * _pot_pre("spline", r2, pre)
+            if mask_self:
+                s = torch.where(j == i[:, None], 0.0, s)
+            part = s.sum(1, keepdim=True)
+        total, comp = _kahan_step(total, comp, part, kahan)
+    return total if mode == "acc" else total[:, 0]
+
+
+def _band(tgt, src, start, mode, kahan, eps2, mask_self, tm, tn, nb):
+    """Spline band pass through ``band_kernel``: (nt, 3) or (nt,).  A
+    window outside the sources (``start`` < 0 or ``start + nb`` past the
+    last row) gives NaN for that tile's targets on the card."""
+    if nb <= 0:
+        raise ValueError(f"band width nb={nb} must be positive")
+    _check_operands(tgt, src, start, nb, tm, tn)
+    if not tgt.is_cuda:
+        return _band_reference(tgt, src, start, mode, kahan, eps2,
+                               mask_self, tm, tn, nb)
+    from . import _build
+
+    nt, ns = tgt.shape[1], src.shape[1]
+    out = torch.empty((nt, 3) if mode == "acc" else (nt,),
+                      dtype=torch.float32, device=tgt.device)
+    with torch.cuda.device(tgt.device):
+        rc = _kernel_lib().nbody_band(
+            _MODES[mode], int(kahan), int(nb), tgt.data_ptr(), nt,
+            src.data_ptr(), ns, start.data_ptr(), tm, tn, int(mask_self),
+            float(eps2), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "band_kernel")
+    LAUNCHES["band"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Host side
+# ---------------------------------------------------------------------------
+
+def _direct(pos_t, soft_t, pos_s, gmass_s, soft_s, kind, kahan, mode, eps2,
+            tm=TM, tn=TN, mask_self=False, skip_band=0, band_start=None):
+    """Targets against sources (the TPU's ``_pallas_direct``)."""
+    tgt = _targets(pos_t, _soft_pre(kind, soft_t))
+    src = _sources(pos_s, gmass_s, _soft_pre(kind, soft_s), tn)
+    if band_start is not None:
+        band_start = band_start.to(torch.int32).contiguous()
+    return _direct_tile(tgt, src, kind, mode, kahan, eps2, mask_self,
+                        skip_band, band_start, tm, tn)
+
+
+def _pad_edge(x, n):
+    """Pad a 1-D tensor to length n by repeating its last value."""
+    return torch.cat([x, x[-1:].expand(n - x.shape[0])])
+
+
+def band_window(x, h_max, tm=TM, tn=TN):
+    """The band windows of x-sorted particles.
+
+    Returns ``(first, max_width, rows)``: per target tile of ``tm`` the
+    first source row (of ``tn``) that is not provably far (a row is far
+    when its whole x-span lies more than ``h_max`` outside the tile's),
+    the widest [first, last] window over all tiles (a 0-dim tensor), and
+    the number of source rows.  The window covers every near row for any
+    order, so a stale order only widens it."""
+    nt = x.shape[0]
+    nt_pad = -(-nt // tm) * tm
+    ns_pad = -(-nt // tn) * tn
+    rows = ns_pad // tn
+    # window stats pad with the edge value (sources pad with zeros)
+    x_t = _pad_edge(x, nt_pad).reshape(nt_pad // tm, tm)
+    x_s = _pad_edge(x, ns_pad).reshape(rows, tn)
+    t_lo, t_hi = x_t.amin(1), x_t.amax(1)
+    s_lo, s_hi = x_s.amin(1), x_s.amax(1)
+    far = ((s_hi[None, :] < (t_lo - h_max)[:, None])
+           | (s_lo[None, :] > (t_hi + h_max)[:, None]))
+    ridx = torch.arange(rows, dtype=torch.int32, device=x.device)[None, :]
+    first = torch.where(far, rows, ridx).amin(1)
+    last = torch.where(far, -1, ridx).amax(1)
+    return first, (last - first + 1).amax(), rows
+
+
+def band_rows(rows):
+    """The static band width in source rows (~6% of rows, floor 12)."""
+    return min(max(12, rows // 16), rows)
+
+
+def _self_sorted(pos, gmass, soft, kind, kahan, mode, eps2, tm=None,
+                 tn=None, order=None):
+    """Self-gravity via slab sort + the compact-support two-pass split
+    (the TPU's ``_pallas_self_sorted``).
+
+    ``order`` may be any permutation (a stale slab order included): the
+    band windows are recomputed from the actual positions on every call,
+    so a bad order only widens them until the single-pass fallback takes
+    over."""
+    tm = TM if tm is None else tm
+    tn = TN if tn is None else tn
+    _check_geometry(tm, tn)
+    if order is None:
+        order = slab_sort_key(pos)
+    ps, gs, hs = pos[order], gmass[order], soft[order]
+    hinv = _soft_pre("spline", hs)
+    mask_self = mode == "pot"
+    first, max_width, rows = band_window(ps[:, 0], hs.max(), tm, tn)
+    nb = band_rows(rows)
+    tgt = _targets(ps, hinv)
+    src = _sources(ps, gs, hinv, tn)
+    # The TPU path picks the branch on the device (lax.cond); here the
+    # comparison is read on the host: one device sync per call.
+    if int(max_width) <= nb:
+        BRANCHES["two_pass"] += 1
+        start = first.clamp(0, rows - nb).to(torch.int32).contiguous()
+        out_s = (_direct_tile(tgt, src, "newtonian", mode, kahan, eps2,
+                              mask_self, nb, start, tm, tn)
+                 + _band(tgt, src, start, mode, kahan, eps2, mask_self, tm,
+                         tn, nb))
+    else:
+        BRANCHES["single_pass"] += 1
+        out_s = _direct_tile(tgt, src, "spline", mode, kahan, eps2,
+                             mask_self, tm=tm, tn=tn)
+    out = torch.empty_like(out_s)
+    out[order] = out_s
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Public wrappers
+# ---------------------------------------------------------------------------
+
+def cuda_accel_2set(pos_t, soft_t, pos_s, gmass_s, soft_s, kind, kahan,
+                    eps2=PAIRWISE_EPS2):
+    """Accelerations of targets due to sources (G folded into gmass_s)."""
+    f32 = torch.float32
+    return _direct(pos_t.to(f32), soft_t.to(f32), pos_s.to(f32),
+                   gmass_s.to(f32), soft_s.to(f32), kind, kahan, "acc",
+                   float(eps2))
+
+
+def cuda_potential_2set(pos_t, soft_t, pos_s, gmass_s, soft_s, kind, kahan,
+                        eps2=PAIRWISE_EPS2, mask_self=False):
+    """Potential of targets due to sources.  ``mask_self=True`` excludes
+    pairs at identical index: use it when targets and sources are the same
+    array (an outside subtraction of the self term would cancel
+    catastrophically for h = 0 particles)."""
+    f32 = torch.float32
+    return _direct(pos_t.to(f32), soft_t.to(f32), pos_s.to(f32),
+                   gmass_s.to(f32), soft_s.to(f32), kind, kahan, "pot",
+                   float(eps2), mask_self=mask_self)
+
+
+def uses_spatial_sort(kind: str, n: int, spatial_sort=None) -> bool:
+    """Whether cuda_accel/cuda_potential take the slab-sorted path."""
+    if spatial_sort is None:
+        return kind == "spline" and n >= 16384
+    return bool(spatial_sort) and kind == "spline"
+
+
+def slab_sort_key(pos):
+    """The sort order of the slab-sorted path (stable argsort along x)."""
+    return torch.argsort(pos[:, 0], stable=True)
+
+
+def _self_gravity(mode, pos, mass, soft, G, kind, kahan, eps2, spatial_sort,
+                  order, tm, tn):
+    validate_kernel(kind)
+    f32 = torch.float32
+    gmass = (mass * G).to(f32)
+    soft = soft.to(f32)
+    pos = pos.to(f32)
+    if uses_spatial_sort(kind, pos.shape[0], spatial_sort):
+        return _self_sorted(pos, gmass, soft, kind, kahan, mode, float(eps2),
+                            tm=tm, tn=tn, order=order)
+    if mode == "acc":
+        return cuda_accel_2set(pos, soft, pos, gmass, soft, kind, kahan,
+                               eps2)
+    return cuda_potential_2set(pos, soft, pos, gmass, soft, kind, kahan,
+                               eps2, mask_self=True)
+
+
+def cuda_accel(pos, mass, soft, G, kind, kahan, eps2=PAIRWISE_EPS2,
+               spatial_sort=None, order=None, tm=None, tn=None):
+    """(N, 3) float32 self-gravity accelerations.
+
+    ``spatial_sort`` (default: on for the spline at N >= 16384) selects
+    the slab-sorted two-pass path; ``order`` optionally supplies a
+    precomputed (possibly stale) slab order; ``tm``/``tn`` override its
+    band geometry."""
+    return _self_gravity("acc", pos, mass, soft, G, kind, kahan, eps2,
+                         spatial_sort, order, tm, tn)
+
+
+def cuda_potential(pos, mass, soft, G, kind, kahan, eps2=PAIRWISE_EPS2,
+                   spatial_sort=None, order=None, tm=None, tn=None):
+    """(N,) float32 self-gravity potential (self pair masked in-kernel)."""
+    return _self_gravity("pot", pos, mass, soft, G, kind, kahan, eps2,
+                         spatial_sort, order, tm, tn)
