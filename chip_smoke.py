@@ -6,7 +6,8 @@ Builds the CUDA kernels of ``nbody_streams_tpu_torch`` from the sources in
 this checkout, checks each against its plain torch version on the card,
 drives ``run_simulation(method='direct', architecture='gpu')`` on the bench
 case (N = 65,536 Plummer, spline softening h = 0.05, float32 + Kahan,
-dt = 2e-5), and times it.  Phases:
+dt = 2e-5), times it, and drives the measurement path (probe, bench,
+roofline, speed of light, tile sweep, bench suite).  Phases:
 
   (a) card name and power limit; kernel build time
   (b) kernels vs plain versions on the card; kernel vs the fp64 oracle
@@ -16,10 +17,23 @@ dt = 2e-5), and times it.  Phases:
       path ran through both kernels
   (e) impl='cuda' vs impl='torch' over 10 KDK steps at N = 16,384
   (f) ms/step and Gint/s of the bench case, best of 3 windows of 100 steps
+      (``bench.measure``, |dE/E| < 1e-4 over the windows)
+  (g) the roofline kernels vs their plain versions; then, with their
+      launch counts zeroed, the measurement path: the FMA probe, the
+      bench's capacity probe, the FMA and rsqrt rates and tile_sol at the
+      base pass's shape and at full occupancy, each <= 1.05 x the card's
+      peak (SM count x max clock); the base and band passes as fractions
+      of the speed of light; the base pass at full occupancy (16 copies
+      of its targets, the same work per block)
+  (h) the tile sweep at N = 65,536 (every geometry within 2e-6 * max of
+      the default's accelerations), bench_suite sections 1-3 (errors vs
+      the fp64 oracle <= 3e-6), and the single-pass kernel's plain time
 
 Every phase raises on failure.  The last line is
-``{"ok": true, "device": {...}}``; the line before it is a JSON object of
-the kernels: launches in phase (d), max error and times from (b)/(f).
+``{"ok": true, "device": {...}}``; the line before it is the card, and
+the one before that a JSON object of the kernels: launches in phase (d)
+for the force kernels and in phase (g)'s measurement path for the
+roofline kernels, max error and times from (b)/(g).
 Exits nonzero, and prints no result, without a CUDA device.
 """
 import argparse
@@ -36,8 +50,16 @@ import torch
 N_BENCH = 65536
 DT = 2e-5
 H = 0.05
-BASELINE_GINT = 124.0  # the reference's RTX 3080 direct fp32 path
 SOURCE = "nbody_streams_tpu_torch/csrc/direct.cu"
+ROOFLINE_SOURCE = "nbody_streams_tpu_torch/csrc/roofline.cu"
+# the chains (K links per pass, passes) for the kernel-vs-plain checks: the
+# probe's K, where the chains sit at their fixed point, and a K below it,
+# where every link and every pass moves the output
+CHAIN_CHECKS = ((256, 40), (16, 2))
+# tile_sol reps for the kernel-vs-plain check and for the rates
+SOL_CHECK_REPS, SOL_REPS = 16, 1024
+# copies of the bench case's targets for the base pass at full occupancy
+OCC_COPIES = 16
 
 
 def log(msg):
@@ -169,6 +191,7 @@ def phase_b(dev):
         ms = cuda_ms(lambda: cd._direct_tile(
             tgt, src, "spline", mode, True, 1e-15, mode == "pot"), 5)
         log(f"(b) single-pass spline {mode} at N={N_BENCH}: {ms:.3f} ms")
+    stats["operands"] = (tgt, src, start, nb)
 
     # kernels vs the fp64 oracle at N = 16,384 (sorted two-pass path).
     # Tolerance 3e-6 * max, the JAX package's kernel-vs-oracle tolerance
@@ -309,39 +332,178 @@ def phase_e(dev):
 
 
 def phase_f(dev, smi, name):
-    from nbody_streams_tpu_torch.integrate import (
-        init_state, make_accel_fn, make_kdk_step, run_chunk)
-    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+    from nbody_streams_tpu_torch import bench
 
-    xv, m = plummer_case(N_BENCH, 2)
-    solver = DirectGravity(m, np.full(N_BENCH, H), device=dev)
-    accel_fn = make_accel_fn(solver, solver.mass)
-    step_fn = make_kdk_step(accel_fn, DT, 0.0)
-    state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, 0.0,
-                       sort_fn=solver.sort_key, device=dev)
-    every = solver.presort_interval   # the driver's order-refresh policy
-    state = run_chunk(step_fn, state, 10, presort=True, presort_every=every)
-    torch.cuda.synchronize()
-    windows = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        state = run_chunk(step_fn, state, 100, presort=True,
-                          presort_every=every)
-        torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) / 100)
-    check(torch.isfinite(state.pos).all().item(), "timed run not finite")
-    best = min(windows)
-    gint = N_BENCH * N_BENCH / best / 1e9
-    log(f"(f) N={N_BENCH} {best * 1e3:.3f} ms/step (windows "
-        f"{', '.join(f'{w * 1e3:.3f}' for w in windows)} ms), "
-        f"{gint:.2f} Gint/s on {name} ({smi})")
+    r = bench.measure(dev, windows=3, steps=100)
+    log(f"(f) N={N_BENCH} {r['ms_per_step']:.3f} ms/step (windows "
+        f"{', '.join(f'{w:.3f}' for w in r['windows_ms'])} ms), "
+        f"{r['gint_per_s']:.2f} Gint/s, |dE/E| = {r['de']:.2e} over "
+        f"{r['steps']} steps, on {name} ({smi})")
     log(json.dumps({
-        "metric": f"direct-force KDK pairwise throughput (N={N_BENCH}, "
-                  "spline softening, float32+Kahan)",
-        "value": round(gint, 2), "unit": "Gint/s",
-        "vs_baseline": round(gint / BASELINE_GINT, 3),
+        "metric": bench.METRIC, "value": round(r["gint_per_s"], 2),
+        "unit": "Gint/s",
+        "vs_baseline": round(r["gint_per_s"] / bench.BASELINE_GINT, 3),
         "card": smi}))
-    return best
+    return r
+
+
+def phase_g(dev, base):
+    """Roofline kernels vs plain, then the measurement path."""
+    from nbody_streams_tpu_torch import bench
+    from nbody_streams_tpu_torch.benchmarks import tile_sweep
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+    from nbody_streams_tpu_torch.ops import probe
+    from nbody_streams_tpu_torch.ops import roofline as rl
+
+    t0 = time.perf_counter()
+    stats = {}
+    # chains: tolerance 1e-5 * max (one FFMA on the card, two roundings in
+    # torch; rsqrt within 2 ulp on both sides; the recurrences contract).
+    # The kernels line takes the worst error of the checks and the times
+    # of the first (the probe's K)
+    x = probe.probe_tile(dev)
+    for name in ("fma_chain", "rsqrt_chain"):
+        fn = getattr(rl, name)
+        ref = getattr(rl, f"_{name}_reference")
+        for K, passes in CHAIN_CHECKS:
+            got, want = fn(x, K, passes), ref(x, K, passes)
+            check(torch.isfinite(got).all().item(), f"{name} not finite")
+            rel, absolute = rel_err(got, want)
+            check(rel < 1e-5, f"{name} K={K}: {rel:.2e} >= 1e-5")
+            if name not in stats:
+                stats[name] = dict(
+                    max_abs_err=absolute, rel=rel,
+                    ms=cuda_ms(lambda: fn(x, K, passes), 10),
+                    plain_ms=cuda_ms(lambda: ref(x, K, passes), 1))
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                             absolute)
+            log(f"(g) {name}_kernel on (512, 512), K={K}, {passes} passes: "
+                f"rel err {rel:.2e}, abs {absolute:.3e} (tol 1e-5 rel)")
+        log(f"(g) {name}_kernel at K={CHAIN_CHECKS[0][0]}, "
+            f"{CHAIN_CHECKS[0][1]} passes: {stats[name]['ms']:.3f} ms vs "
+            f"plain {stats[name]['plain_ms']:.3f} ms")
+    # tile_sol at the base pass's shape on the bench operands: 2e-6 * max
+    # (the Kahan tolerance of direct_tile_kernel)
+    tgt, src, _, nb = base["operands"]
+    blocks = tgt.shape[1] // 64
+    for kind in ("newtonian", "spline"):
+        def sol(kind=kind):
+            return rl.tile_sol(tgt, src, kind, blocks, SOL_CHECK_REPS)
+
+        def plain(kind=kind):
+            return rl._tile_sol_reference(tgt, src, kind, blocks,
+                                          SOL_CHECK_REPS)
+
+        got, want = sol(), plain()
+        rel, absolute = rel_err(got, want)
+        check(torch.isfinite(got).all().item(), f"tile_sol {kind}")
+        check(rel < 2e-6, f"tile_sol {kind}: {rel:.2e} >= 2e-6")
+        ms, plain_ms = cuda_ms(sol, 10), cuda_ms(plain, 1)
+        if kind == "newtonian":
+            stats["tile_sol"] = dict(max_abs_err=absolute, rel=rel, ms=ms,
+                                     plain_ms=plain_ms)
+        log(f"(g) tile_sol_kernel<{kind}> at {blocks} blocks, "
+            f"{SOL_CHECK_REPS} reps: rel err {rel:.2e} (tol 2e-6), "
+            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+
+    # the measurement path, its launch counts zeroed just before
+    for key in rl.LAUNCHES:
+        rl.LAUNCHES[key] = 0
+    tops = probe.delivered_tops(device=dev)
+    torch_tops, cuda_tops = bench._capacity_probe(device=dev)
+    roof = tile_sweep.roofline(dev)
+    sols = {(kind, shape): tile_sweep.sol(
+                kind, blocks if shape == "base" else None, SOL_REPS, dev)
+            for kind in ("newtonian", "spline") for shape in ("base", "full")}
+    launches = dict(rl.LAUNCHES)
+    check(all(v > 0 for v in launches.values()),
+          f"measurement path missed a kernel: {launches}")
+
+    peaks = probe.card_peaks(dev)
+    fp32, mufu = peaks["fp32_ops_per_s"], peaks["mufu_per_s"]
+    log(f"(g) card peaks from {peaks['sms']} SMs at {peaks['max_sm_mhz']:.0f} "
+        f"MHz max: FP32 {fp32 / 1e12:.2f} TFLOP/s, MUFU "
+        f"{mufu / 1e12:.3f} T/s")
+    readings = [("delivered_tops fma", tops * 1e12, fp32),
+                ("capacity probe fma_chain_kernel", cuda_tops * 1e12, fp32),
+                ("roofline fma", roof["fma"]["g_ops_per_s"] * 1e9, fp32),
+                ("roofline rsqrt", roof["rsqrt"]["g_lanes_per_s"] * 1e9,
+                 mufu)]
+    readings += [(f"tile_sol {kind} {shape} ({r['blocks']} blocks) pairs",
+                  r["g_pairs_per_s"] * 1e9, mufu)
+                 for (kind, shape), r in sols.items()]
+    for what, rate, peak in readings:
+        check(np.isfinite(rate) and 0 < rate <= 1.05 * peak,
+              f"{what}: {rate:.4e}/s is not within (0, 1.05 x peak "
+              f"{peak:.4e}]")
+        log(f"(g) {what}: {rate:.6e}/s = {rate / peak:.4f} of peak")
+    log(f"(g) capacity probe: plain torch chain {torch_tops:.5f} Top/s, "
+        f"fma_chain_kernel {cuda_tops:.4f} Top/s")
+
+    # base and band passes (phase b) as fractions of the speed of light
+    nt, ns = tgt.shape[1], src.shape[1]
+    base_pairs = nt * (ns - nb * cd.TN) / (base["direct"]["ms"] * 1e-3)
+    # the base pass itself at full occupancy: OCC_COPIES copies of the
+    # targets (and of their band windows) against the same sources, the
+    # same work per block in OCC_COPIES times the blocks
+    start = base["operands"][2]
+    tgt_n, start_n = tgt.repeat(1, OCC_COPIES), start.repeat(OCC_COPIES)
+
+    def base_pass(t, s):
+        return cd._direct_tile(t, src, "newtonian", "acc", True, 1e-15, False,
+                               nb, s)
+
+    check(torch.equal(base_pass(tgt_n, start_n)[:nt], base_pass(tgt, start)),
+          "base pass over copied targets differs from the base pass")
+    own_ms = cuda_ms(lambda: base_pass(tgt, start), 20)
+    full_ms = cuda_ms(lambda: base_pass(tgt_n, start_n), 5)
+    own_pairs = nt * (ns - nb * cd.TN) / (own_ms * 1e-3)
+    full_pairs = OCC_COPIES * nt * (ns - nb * cd.TN) / (full_ms * 1e-3)
+    log(f"(g) base pass occupancy: {nt // cd.BLOCK} blocks {own_ms:.3f} ms, "
+        f"{own_pairs:.6e} pairs/s; {OCC_COPIES * nt // cd.BLOCK} blocks "
+        f"{full_ms:.3f} ms, {full_pairs:.6e} pairs/s; own shape / full = "
+        f"{own_pairs / full_pairs:.4f}")
+    band_pairs = nt * nb * cd.TN / (base["band"]["ms"] * 1e-3)
+    for shape in ("base", "full"):
+        sn = sols[("newtonian", shape)]["g_pairs_per_s"] * 1e9
+        ss = sols[("spline", shape)]["g_pairs_per_s"] * 1e9
+        log(f"(g) speed of light at the {shape} shape: base pass "
+            f"{base_pairs:.6e} pairs/s = {base_pairs / sn:.4f} of "
+            f"tile_sol newtonian; band pass {band_pairs:.6e} pairs/s = "
+            f"{band_pairs / ss:.4f} of tile_sol spline")
+    sn = sols[("newtonian", "full")]["g_pairs_per_s"] * 1e9
+    log(f"(g) base pass at full occupancy: {full_pairs / sn:.4f} of "
+        "tile_sol newtonian at full occupancy")
+    log(f"(g) wall {time.perf_counter() - t0:.1f} s")
+    return stats, launches
+
+
+def phase_h(dev, base):
+    from nbody_streams_tpu_torch import bench_suite
+    from nbody_streams_tpu_torch.benchmarks import tile_sweep
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    t0 = time.perf_counter()
+    res = tile_sweep.sweep(N_BENCH, 10, tile_sweep.GEOMS_64K, dev)
+    ref = res[(512, 512)]["acc"]
+    for (tm, tn), r in res.items():
+        rel, _ = rel_err(r["acc"], ref)
+        check(rel < 2e-6, f"sweep {tm}/{tn}: {rel:.2e} >= 2e-6 of 512/512")
+        log(f"(h) sweep tm={tm} tn={tn}: {r['ms_per_eval']:.3f} ms/eval, "
+            f"{r['gint_per_s']:.2f} Gint/s ({r['branch']}), rel err vs "
+            f"512/512 {rel:.2e} (tol 2e-6)")
+    out = bench_suite.main(["-N", str(N_BENCH), "--reps", "3",
+                            "--sections", "1,2,3"])
+    for precision, row in out["section3"].items():
+        check(row["max_rel_err"] <= 3e-6,
+              f"bench_suite {precision}: {row['max_rel_err']:.2e} > 3e-6")
+    # row 2 of the kernel table: the single-pass kernel's plain version
+    tgt, src = base["operands"][:2]
+    plain_ms = cuda_ms(lambda: cd._direct_tile_reference(
+        tgt, src, "spline", "acc", True, 1e-15), 1)
+    log(f"(h) single-pass spline acc plain version at N={N_BENCH}: "
+        f"{plain_ms:.3f} ms")
+    log(f"(h) wall {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -363,6 +525,8 @@ def main():
     launches = phase_d(dev)
     phase_e(dev)
     phase_f(dev, smi, name)
+    roof_stats, roof_launches = phase_g(dev, stats)
+    phase_h(dev, stats)
     replaces = {"direct": "nbody_streams_tpu/ops/pallas_direct.py:301",
                 "band": "nbody_streams_tpu/ops/pallas_direct.py:494"}
     kernels = [{"name": f"{key}_{'tile_' if key == 'direct' else ''}kernel",
@@ -371,6 +535,18 @@ def main():
                 "max_abs_err": stats[key]["max_abs_err"],
                 "ms": stats[key]["ms"], "plain_ms": stats[key]["plain_ms"]}
                for key in ("direct", "band")]
+    replaces = {
+        "fma_chain": "nbody_streams_tpu/ops/probe.py:62, bench.py:95, "
+                     "benchmarks/tile_sweep.py:111",
+        "rsqrt_chain": "benchmarks/tile_sweep.py:111",
+        "tile_sol": "benchmarks/tile_sweep.py:193"}
+    kernels += [{"name": f"{key}_kernel", "route": "cuda",
+                 "source": ROOFLINE_SOURCE, "replaces": replaces[key],
+                 "launches": roof_launches[key],
+                 "max_abs_err": roof_stats[key]["max_abs_err"],
+                 "ms": roof_stats[key]["ms"],
+                 "plain_ms": roof_stats[key]["plain_ms"]}
+                for key in ("fma_chain", "rsqrt_chain", "tile_sol")]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@
 The port of ``nbody_streams_tpu`` (JAX/Pallas on a TPU) to PyTorch with
 hand-written CUDA kernels for NVIDIA Hopper GPUs.  It keeps the JAX
 package's module names and public surface, and imports neither jax nor the
-JAX package.  This slice covers the direct-summation KDK path:
+JAX package.  It covers the direct-summation KDK path,
 ``run_simulation(method='direct')`` down to the all-pairs kernels in
-``csrc/direct.cu``, which are built with nvcc at first use.
+``csrc/direct.cu``, and the measurement path (``bench``, ``bench_suite``,
+``benchmarks.tile_sweep``) with the roofline kernels in
+``csrc/roofline.cu``; the kernels are built with nvcc at first use.
 """
 from .__version__ import __version__
 from .constants import G_DEFAULT, NBODY_UNITS, KERNEL_IDS

@@ -85,6 +85,13 @@ def library() -> ctypes.CDLL:
         lib.nbody_band.restype = i
         lib.nbody_block_size.argtypes = []
         lib.nbody_block_size.restype = i
+        for chain in (lib.nbody_fma_chain, lib.nbody_rsqrt_chain):
+            chain.argtypes = [p, i, i, i, i, p, p]
+            chain.restype = i
+        lib.nbody_tile_sol.argtypes = [i, p, i, p, i, i, i, f, p, p]
+        lib.nbody_tile_sol.restype = i
+        lib.nbody_tile_sol_occupancy.argtypes = [i, ctypes.POINTER(i)]
+        lib.nbody_tile_sol_occupancy.restype = i
         lib.nbody_error_string.argtypes = [i]
         lib.nbody_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -29,6 +29,8 @@ and ``eps2`` regularisation match ``ops/pairwise.py`` (the oracle).
 """
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from ..constants import KERNEL_IDS, PAIRWISE_EPS2, validate_kernel
@@ -43,8 +45,10 @@ __all__ = ["cuda_accel", "cuda_potential", "cuda_accel_2set",
 # both must be multiples of BLOCK.
 TM = 512
 TN = 512
-# Targets per CUDA block and sources per staged tile (csrc/direct.cu).
+# Targets per CUDA block and sources per staged tile (csrc/direct_math.cuh).
 BLOCK = 64
+# The spline takes the sorted two-pass path from this N on.
+SORT_MIN_N = 16384
 
 #: Kernel launches, counted by the wrappers where they launch (plain ints).
 LAUNCHES = {"direct": 0, "band": 0}
@@ -204,6 +208,25 @@ def _kernel_lib():
     return lib
 
 
+def _pair_sum(kind, mode, eps2, xt, yt, zt, pt, xs, ys, zs, gm, ps,
+              self_pair=None):
+    """Plain version of ``tile_sum`` (csrc/direct_math.cuh): targets
+    (nt, 1) against sources broadcast to (nt, k), plain fp32 over axis 1;
+    (nt, 3) for acc, (nt, 1) for pot, where ``self_pair`` (bool) zeroes
+    the self pairs."""
+    dx, dy, dz = xs - xt, ys - yt, zs - zt
+    r2 = dx * dx + (dy * dy + (dz * dz + eps2))
+    pre = _pair_pre(kind, pt, ps)
+    if mode == "acc":
+        s = gm * _force_pre(kind, r2, pre)
+        return torch.stack([(s * dx).sum(1), (s * dy).sum(1),
+                            (s * dz).sum(1)], dim=1)
+    s = gm * _pot_pre(kind, r2, pre)
+    if self_pair is not None:
+        s = torch.where(self_pair, 0.0, s)
+    return s.sum(1, keepdim=True)
+
+
 def _kahan_step(total, comp, part, kahan, keep=None):
     """One accumulation step (Kahan two-sum or plain); ``keep`` (bool,
     broadcastable) leaves rows untouched where False, as a skipped tile."""
@@ -234,20 +257,9 @@ def _direct_tile_reference(tgt, src, kind, mode, kahan, eps2,
         lo = start.to(torch.int64)[i // tm] * tn
         hi = lo + nb * tn
     for j0 in range(0, ns, BLOCK):
-        xs, ys, zs, gm, ps = (src[k, j0:j0 + BLOCK][None, :]
-                              for k in range(5))
-        dx, dy, dz = xs - xt, ys - yt, zs - zt
-        r2 = dx * dx + (dy * dy + (dz * dz + eps2))
-        pre = _pair_pre(kind, pt, ps)
-        if mode == "acc":
-            s = gm * _force_pre(kind, r2, pre)
-            part = torch.stack([(s * dx).sum(1), (s * dy).sum(1),
-                                (s * dz).sum(1)], dim=1)
-        else:
-            s = gm * _pot_pre(kind, r2, pre)
-            if mask_self:
-                s = torch.where(i == j0 + lane, 0.0, s)
-            part = s.sum(1, keepdim=True)
+        part = _pair_sum(kind, mode, eps2, xt, yt, zt, pt,
+                         *(src[k, j0:j0 + BLOCK][None, :] for k in range(5)),
+                         self_pair=(i == j0 + lane) if mask_self else None)
         keep = ((j0 < lo) | (j0 >= hi)) if nb else None
         total, comp = _kahan_step(total, comp, part, kahan, keep)
     return total if mode == "acc" else total[:, 0]
@@ -298,19 +310,9 @@ def _band_reference(tgt, src, start, mode, kahan, eps2, mask_self, tm, tn,
     lane = torch.arange(tn, device=tgt.device)[None, :]
     for b in range(nb):
         j = ((row0 + b) * tn)[:, None] + lane           # (nt, tn)
-        xs, ys, zs, gm, ps = (src[k][j] for k in range(5))
-        dx, dy, dz = xs - xt, ys - yt, zs - zt
-        r2 = dx * dx + (dy * dy + (dz * dz + eps2))
-        pre = torch.minimum(pt, ps)
-        if mode == "acc":
-            s = gm * _force_pre("spline", r2, pre)
-            part = torch.stack([(s * dx).sum(1), (s * dy).sum(1),
-                                (s * dz).sum(1)], dim=1)
-        else:
-            s = gm * _pot_pre("spline", r2, pre)
-            if mask_self:
-                s = torch.where(j == i[:, None], 0.0, s)
-            part = s.sum(1, keepdim=True)
+        part = _pair_sum("spline", mode, eps2, xt, yt, zt, pt,
+                         *(src[k][j] for k in range(5)),
+                         self_pair=(j == i[:, None]) if mask_self else None)
         total, comp = _kahan_step(total, comp, part, kahan)
     return total if mode == "acc" else total[:, 0]
 
@@ -459,13 +461,27 @@ def cuda_potential_2set(pos_t, soft_t, pos_s, gmass_s, soft_s, kind, kahan,
 def uses_spatial_sort(kind: str, n: int, spatial_sort=None) -> bool:
     """Whether cuda_accel/cuda_potential take the slab-sorted path."""
     if spatial_sort is None:
-        return kind == "spline" and n >= 16384
+        return kind == "spline" and n >= SORT_MIN_N
     return bool(spatial_sort) and kind == "spline"
 
 
 def slab_sort_key(pos):
     """The sort order of the slab-sorted path (stable argsort along x)."""
     return torch.argsort(pos[:, 0], stable=True)
+
+
+def _warn_tile_ignored(tm, tn, kind, n):
+    """The tm/tn overrides only shape the slab-sorted two-pass path; warn
+    rather than let a bencher believe they measured a geometry the
+    single-pass kernel never saw (the TPU's ``_warn_tile_ignored``)."""
+    given = sorted(k for k, v in (("tm", tm), ("tn", tn)) if v is not None)
+    if given:
+        from ..species import PerformanceWarning
+
+        warnings.warn(
+            f"tile overrides {given} apply only to the slab-sorted spline "
+            f"path (kernel='spline', N >= {SORT_MIN_N}); ignored for "
+            f"kernel={kind!r}, N={n:,}", PerformanceWarning, stacklevel=4)
 
 
 def _self_gravity(mode, pos, mass, soft, G, kind, kahan, eps2, spatial_sort,
@@ -478,6 +494,7 @@ def _self_gravity(mode, pos, mass, soft, G, kind, kahan, eps2, spatial_sort,
     if uses_spatial_sort(kind, pos.shape[0], spatial_sort):
         return _self_sorted(pos, gmass, soft, kind, kahan, mode, float(eps2),
                             tm=tm, tn=tn, order=order)
+    _warn_tile_ignored(tm, tn, kind, pos.shape[0])
     if mode == "acc":
         return cuda_accel_2set(pos, soft, pos, gmass, soft, kind, kahan,
                                eps2)

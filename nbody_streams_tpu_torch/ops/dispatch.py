@@ -28,6 +28,14 @@ from . import cuda_direct, pairwise
 
 __all__ = ["DirectGravity"]
 
+_TILE_KEYS = {"tm", "tn", "max_sub", "mxu", "fold_mass"}
+# tile_config keys of the TPU's sorted Pallas path with no CUDA meaning
+_TPU_TILE_KEYS = {
+    "max_sub": "sources per TPU grid step (VMEM superblocks)",
+    "mxu": "the TPU's matrix-unit moment form",
+    "fold_mass": "the mass fold of the matrix-unit moment form",
+}
+
 _NOT_PORTED = {
     "xla": "the TPU-only XLA two-pass backend is not ported (ROADMAP.md, "
            "'Do not port')",
@@ -45,7 +53,14 @@ class DirectGravity:
 
     ``target_drift`` is validated and kept but changes nothing: on the
     TPU it only unfolds the mass from the matrix-unit moment form, which
-    the port does not have."""
+    the port does not have.
+
+    ``tile_config`` overrides the band geometry of the slab-sorted path:
+    ``tm`` (targets per band tile) and ``tn`` (sources per band row),
+    positive multiples of 64.  The TPU's other keys (``max_sub``,
+    ``mxu``, ``fold_mass``) are accepted and ignored with a
+    ``PerformanceWarning``; off the sorted path the overrides are ignored
+    with a warning at the force call, as on the TPU."""
 
     def __init__(
         self,
@@ -59,6 +74,7 @@ class DirectGravity:
         device=None,
         eps2: float = PAIRWISE_EPS2,
         target_drift: float | None = None,
+        tile_config: dict | None = None,
     ):
         validate_kernel(kernel)
         validate_precision(precision)
@@ -99,6 +115,26 @@ class DirectGravity:
                 raise ValueError("target_drift must be a positive |dE/E| "
                                  f"bound (got {target_drift!r})")
         self.target_drift = target_drift
+
+        self.tile_config = tile_config
+        self._tile = {}
+        if tile_config is not None:
+            bad = set(tile_config) - _TILE_KEYS
+            if bad:
+                raise ValueError(f"unknown tile_config keys: {sorted(bad)}")
+            self._tile = {k: int(tile_config[k]) for k in ("tm", "tn")
+                          if k in tile_config}
+            cuda_direct._check_geometry(self._tile.get("tm", cuda_direct.TM),
+                                        self._tile.get("tn", cuda_direct.TN))
+            ignored = sorted(set(tile_config) & set(_TPU_TILE_KEYS))
+            if ignored:
+                from ..species import PerformanceWarning
+
+                what = "; ".join(f"{k}: {_TPU_TILE_KEYS[k]}" for k in ignored)
+                warnings.warn(
+                    f"tile_config keys {ignored} have no meaning for the "
+                    f"CUDA kernels and are ignored ({what})",
+                    PerformanceWarning, stacklevel=2)
 
         if precision == "float32_fast":
             from ..species import PerformanceWarning
@@ -149,7 +185,7 @@ class DirectGravity:
         if self.impl == "cuda":
             return cuda_direct.cuda_accel(
                 pos, self.mass, self.softening, self.G, self.kernel,
-                self.kahan, self.eps2, order=order)
+                self.kahan, self.eps2, order=order, **self._tile)
         return pairwise._pairwise_blocked(
             pos, self.mass, self.softening, self.G, self.kernel, self.kahan,
             self.block_size, "acc", self.eps2)
@@ -161,7 +197,7 @@ class DirectGravity:
         if self.impl == "cuda":
             return cuda_direct.cuda_potential(
                 pos, self.mass, self.softening, self.G, self.kernel,
-                self.kahan, self.eps2, order=order)
+                self.kahan, self.eps2, order=order, **self._tile)
         return pairwise._pairwise_blocked(
             pos, self.mass, self.softening, self.G, self.kernel, self.kahan,
             self.block_size, "pot", self.eps2)

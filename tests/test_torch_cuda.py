@@ -9,6 +9,11 @@ Tolerances (max |kernel - plain| / max |plain|): 2e-6 with Kahan and 1e-5
 without (fp32 sums in another order; rsqrt within 2 ulp on both sides);
 3e-6 against the fp64 oracle (the JAX package's kernel-vs-oracle
 tolerance); 1e-6 between the 'cuda' and 'torch' impls over 10 KDK steps.
+The roofline chains: 1e-5 (the kernel contracts acc * v + v into one
+FFMA, torch rounds twice; rsqrt within 2 ulp on both sides; the
+recurrences contract, so the differences do not grow).  Every roofline
+rate stays <= 1.05 x the card's peak (SM count x max clock): a higher
+reading means work was deleted.
 """
 import numpy as np
 import pytest
@@ -21,7 +26,10 @@ from nbody_streams_tpu_torch.integrate import (
     make_kdk_step,
     run_chunk,
 )
+from nbody_streams_tpu_torch.benchmarks import tile_sweep
 from nbody_streams_tpu_torch.ops import cuda_direct as cd
+from nbody_streams_tpu_torch.ops import probe
+from nbody_streams_tpu_torch.ops import roofline as rl
 from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
 from nbody_streams_tpu_torch.ops.pairwise import compute_forces_direct
 
@@ -176,3 +184,56 @@ def test_wrapper_raises_on_bad_operands(dev):
     with pytest.raises(ValueError, match="one device"):
         cd._direct_tile(tgt, torch.zeros((5, 128)), "spline", "acc", True,
                         1e-15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fma_chain", "rsqrt_chain"])
+def test_chain_kernels_match_plain(dev, name):
+    """At K = 256 the chains sit at their fixed point; at K = 16 every
+    link still moves the output, so that check sees the links done."""
+    x = probe.probe_tile(dev)
+    for K, passes in ((256, 4), (16, 2)):
+        before = rl.LAUNCHES[name]
+        got = getattr(rl, name)(x, K, passes)
+        torch.cuda.synchronize()
+        assert rl.LAUNCHES[name] == before + 1
+        want = getattr(rl, f"_{name}_reference")(x, K, passes)
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["newtonian", "spline"])
+def test_tile_sol_kernel_matches_plain(dev, kind):
+    """Targets and source tiles both wrap (300 blocks over 5,000 targets
+    and 64 tiles)."""
+    tgt, src = tile_sweep.sol_operands(kind, 5000, 4096, dev)
+    before = rl.LAUNCHES["tile_sol"]
+    got = rl.tile_sol(tgt, src, kind, 300, 8)
+    torch.cuda.synchronize()
+    assert rl.LAUNCHES["tile_sol"] == before + 1
+    assert _rel(got, rl._tile_sol_reference(tgt, src, kind, 300, 8)) < 2e-6
+
+
+@pytest.mark.cuda
+def test_roofline_rates_within_the_card_peak(dev):
+    peaks = probe.card_peaks(dev)
+    r = tile_sweep.roofline(dev, K=512, passes=256, reps=1)
+    assert 0 < r["fma"]["g_ops_per_s"] * 1e9 <= 1.05 * peaks["fp32_ops_per_s"]
+    assert 0 < r["rsqrt"]["g_lanes_per_s"] * 1e9 <= 1.05 * peaks["mufu_per_s"]
+    for kind in ("newtonian", "spline"):
+        s = tile_sweep.sol(kind, reps=64, device=dev, timing_reps=1)
+        assert s["blocks"] >= peaks["sms"]
+        # one MUFU rsqrt per pair at least
+        assert 0 < s["g_pairs_per_s"] * 1e9 <= 1.05 * peaks["mufu_per_s"]
+
+
+@pytest.mark.cuda
+def test_tile_config_geometry_agrees_with_default(dev):
+    xv, m = make_plummer_sphere(16384, M_total=1e9, a=1.0, seed=4)
+    p = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+    base = DirectGravity(m, np.full(16384, H), device=dev).accel(p)
+    for tile in ({"tm": 256, "tn": 256}, {"tm": 128, "tn": 512}):
+        got = DirectGravity(m, np.full(16384, H), device=dev,
+                            tile_config=tile).accel(p)
+        assert _rel(got, base) < 2e-6
