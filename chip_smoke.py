@@ -9,9 +9,13 @@ case (N = 65,536 Plummer, spline softening h = 0.05, float32 + Kahan,
 dt = 2e-5), times it, and drives the measurement path (probe, bench,
 roofline, speed of light, tile sweep, bench suite).  Phases:
 
-  (a) card name and power limit; kernel build time
-  (b) kernels vs plain versions on the card; kernel vs the fp64 oracle
-  (c) Kahan compensation beats plain fp32 on an adversarial sum
+  (a) card name and power limit; kernel build time; each force kernel's
+      registers, spills and issue slots a pair from its SASS (the base
+      pass's loop holds no rsqrt range check)
+  (b) kernels vs plain versions on the card, each plain version at the
+      kernel's source-stream split count S; S, grid and share of the
+      FLOP bound of the base and band passes; kernel vs the fp64 oracle
+  (c) Kahan compensation beats plain fp32 on an adversarial sum (S = 1)
   (d) run_simulation on the bench case, 300 steps: |dE/E| < 1e-4, the last
       snapshot (the restart file where h5py is absent) reads back, and the
       path ran through both kernels
@@ -24,7 +28,7 @@ roofline, speed of light, tile sweep, bench suite).  Phases:
       base pass's shape and at full occupancy, each <= 1.05 x the card's
       peak (SM count x max clock); the base and band passes as fractions
       of the speed of light; the base pass at full occupancy (16 copies
-      of its targets, the same work per block)
+      of its targets at the same S, the same work per block)
   (h) the tile sweep at N = 65,536 (every geometry within 2e-6 * max of
       the default's accelerations), bench_suite sections 1-3 (errors vs
       the fp64 oracle <= 3e-6), and the single-pass kernel's plain time
@@ -33,7 +37,9 @@ Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card, and
 the one before that a JSON object of the kernels: launches in phase (d)
 for the force kernels and in phase (g)'s measurement path for the
-roofline kernels, max error and times from (b)/(g).
+roofline kernels, max error and times from (b)/(g), each kernel's bound
+(the larger of its operations over the card's peak and its bytes over
+the memory rate) and, for the force kernels, S.
 Exits nonzero, and prints no result, without a CUDA device.
 """
 import argparse
@@ -60,6 +66,17 @@ CHAIN_CHECKS = ((256, 40), (16, 2))
 SOL_CHECK_REPS, SOL_REPS = 16, 1024
 # copies of the bench case's targets for the base pass at full occupancy
 OCC_COPIES = 16
+# the card's peaks for the bounds: H100 SXM at 700 W (NVIDIA's data
+# sheet: FP32 outside the tensor cores, HBM3); the rsqrt chain's MUFU peak
+# is the card's own (SM count x 16 x max clock, probe.card_peaks)
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations a pair, the rsqrt counted as one.  Newtonian force with
+# Kahan: 3 subtracts, 6 for r^2 + eps2, 1 rsqrt, 3 multiplies (inv^3 and
+# G m), 6 for the three multiply-adds into the sum (direct_math.cuh).
+# Spline: the same 19, the pair min of 1/h, and 23 in force_pre<SPLINE>
+# (r, newton, h^-3, q, q^2, 5 inner, 9 outer, 2 compares, 2 selects)
+PAIR_FLOPS = {"newtonian": 19, "spline": 43}
 
 
 def log(msg):
@@ -90,6 +107,18 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(ops, nbytes, peak=PEAK_FP32):
+    """(ms, what sets it): the larger of ops over ``peak`` and bytes over
+    the memory rate."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def plummer_case(n, seed):
     from nbody_streams_tpu_torch import make_plummer_sphere
 
@@ -114,6 +143,22 @@ def phase_a(log_dir):
     log(f"(a) kernels built in {time.perf_counter() - t0:.1f} s: {lib_path}")
     if log_dir:
         shutil.copy(lib_path.parent / "build.log", log_dir)
+    from nbody_streams_tpu_torch.benchmarks import sass
+
+    prof = sass.library_profile()
+    for label, r in prof.items():
+        loop = ""
+        if "slots_per_pair" in r:
+            loop = (f", inner loop {r['slots_per_pair']:.3f} issue slots a "
+                    f"pair ({r['pairs_per_trip']} pairs a trip): "
+                    + ", ".join(f"{op} {n:g}"
+                                for op, n in r["per_pair"].items()))
+        log(f"(a) {label}: {r['registers']} registers, {r['spill_bytes']} "
+            f"spill bytes{loop}")
+    base = prof["direct_tile_kernel<NEWTONIAN,ACC,Kahan,skip> (base pass)"]
+    check(base["per_pair"].get("FSETP", 0) == 0
+          and base["per_pair"]["MUFU.RSQ"] == 1,
+          f"base pass loop keeps an rsqrt range check: {base['per_pair']}")
     return smi, name
 
 
@@ -134,22 +179,24 @@ def phase_b(dev):
     soft = torch.tensor(rng.uniform(0.05, 0.3, n), dtype=torch.float32,
                         device=dev)
     worst = 0.0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for kind in ("newtonian", "plummer", "dehnen_k1", "dehnen_k2", "spline"):
         pre = cd._soft_pre(kind, soft)
         tgt, src = cd._targets(pos, pre), cd._sources(pos, gm, pre, cd.TN)
+        splits = cd.split_count("direct", n, src.shape[1], sms)
         for mode in ("acc", "pot"):
             for kahan in (True, False):
                 args = (tgt, src, kind, mode, kahan, 1e-15, mode == "pot")
                 got = cd._direct_tile(*args)
-                want = cd._direct_tile_reference(*args)
+                want = cd._direct_tile_reference(*args, splits=splits)
                 rel, _ = rel_err(got, want)
                 tol = 2e-6 if kahan else 1e-5
                 check(torch.isfinite(got).all().item(), f"{kind} {mode}")
                 check(rel < tol, f"direct {kind} {mode} kahan={kahan}: "
                       f"{rel:.2e} >= {tol}")
                 worst = max(worst, rel / tol)
-    log(f"(b) direct_tile_kernel single pass, 20 variants at N={n}: "
-        f"worst error {worst:.2f} of its tolerance")
+    log(f"(b) direct_tile_kernel single pass, 20 variants at N={n}, "
+        f"S={splits}: worst error {worst:.2f} of its tolerance")
 
     # skip_band base pass + band pass at the bench case's shapes
     xv, m = plummer_case(N_BENCH, 2)
@@ -165,32 +212,52 @@ def phase_b(dev):
     check(int(max_width) <= nb, f"bench case window {int(max_width)} > {nb}")
     start = first.clamp(0, rows - nb).to(torch.int32).contiguous()
     tgt, src = cd._targets(ps, hinv), cd._sources(ps, gs, hinv, cd.TN)
+    ns = src.shape[1]
     stats = {}
-    for name, fn, ref in (
-            ("direct", lambda: cd._direct_tile(
-                tgt, src, "newtonian", "acc", True, 1e-15, False, nb, start),
-             lambda: cd._direct_tile_reference(
+    for name, kind, pairs, fn, ref in (
+            ("direct", "newtonian", N_BENCH * (ns - nb * cd.TN),
+             lambda s=None: cd._direct_tile(
+                 tgt, src, "newtonian", "acc", True, 1e-15, False, nb, start,
+                 splits=s),
+             lambda s: cd._direct_tile_reference(
                  tgt, src, "newtonian", "acc", True, 1e-15, False, nb,
-                 start)),
-            ("band", lambda: cd._band(tgt, src, start, "acc", True, 1e-15,
-                                      False, cd.TM, cd.TN, nb),
-             lambda: cd._band_reference(tgt, src, start, "acc", True, 1e-15,
-                                        False, cd.TM, cd.TN, nb))):
-        got, want = fn(), ref()
+                 start, splits=s)),
+            ("band", "spline", N_BENCH * nb * cd.TN,
+             lambda s=None: cd._band(tgt, src, start, "acc", True, 1e-15,
+                                     False, cd.TM, cd.TN, nb, splits=s),
+             lambda s: cd._band_reference(tgt, src, start, "acc", True,
+                                          1e-15, False, cd.TM, cd.TN, nb,
+                                          s))):
+        splits = cd.split_count(name, N_BENCH, ns, sms, nb, cd.TN)
+        check(splits > 1, f"{name} at N={N_BENCH} is not split")
+        got, want = fn(), ref(splits)
+        check(torch.equal(got, fn(splits)),
+              f"{name}: the wrapper's S is not split_count's {splits}")
         rel, absolute = rel_err(got, want)
         check(rel < 2e-6, f"{name} at N={N_BENCH}: {rel:.2e} >= 2e-6")
         ms = cuda_ms(fn, 20)
-        plain_ms = cuda_ms(ref, 3)
+        plain_ms = cuda_ms(lambda: ref(splits), 3)
+        bound_ms, bound_by = bound(pairs * PAIR_FLOPS[kind],
+                                   nbytes(tgt, src, start, got))
         stats[name] = dict(max_abs_err=absolute, rel=rel, ms=ms,
-                           plain_ms=plain_ms)
-        log(f"(b) {name} kernel at N={N_BENCH} (nb={nb} of {rows} rows): "
-            f"rel err {rel:.2e} (tol 2e-6), {ms:.3f} ms vs plain "
-            f"{plain_ms:.3f} ms")
+                           plain_ms=plain_ms, splits=splits,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        log(f"(b) {name} kernel at N={N_BENCH} (nb={nb} of {rows} rows), "
+            f"S={splits}, grid {N_BENCH // cd.BLOCK} x {splits} = "
+            f"{N_BENCH // cd.BLOCK * splits} blocks: rel err {rel:.2e} "
+            f"(tol 2e-6), {ms:.3f} ms vs plain {plain_ms:.3f} ms; "
+            f"{pairs / (ms * 1e-3):.6e} pairs/s; bound {bound_ms:.4f} ms "
+            f"({bound_by}: {PAIR_FLOPS[kind]} FP32 ops a pair at "
+            f"{PEAK_FP32 / 1e12:g} TFLOP/s), {bound_ms / ms:.4f} of bound")
+    single = cd.split_count("direct", N_BENCH, ns, sms)
     for mode in ("acc", "pot"):
         # the single-pass spline (the fallback branch) at the same shapes
         ms = cuda_ms(lambda: cd._direct_tile(
             tgt, src, "spline", mode, True, 1e-15, mode == "pot"), 5)
-        log(f"(b) single-pass spline {mode} at N={N_BENCH}: {ms:.3f} ms")
+        bound_ms, _ = bound(N_BENCH * ns * PAIR_FLOPS["spline"], 0)
+        log(f"(b) single-pass spline {mode} at N={N_BENCH}, S={single}: "
+            f"{ms:.3f} ms" + (f", {bound_ms / ms:.4f} of its bound "
+                              f"{bound_ms:.4f} ms" if mode == "acc" else ""))
     stats["operands"] = (tgt, src, start, nb)
 
     # kernels vs the fp64 oracle at N = 16,384 (sorted two-pass path).
@@ -241,7 +308,10 @@ def phase_c(dev):
                       torch.zeros(n, device=dev), cd.TN)
     errs = {}
     for kahan in (True, False):
-        a = cd._direct_tile(tgt, src, "newtonian", "acc", kahan, 1e-15)
+        # one stream: splits would cut the light sources into partial sums
+        # that plain fp32 no longer drops
+        a = cd._direct_tile(tgt, src, "newtonian", "acc", kahan, 1e-15,
+                            splits=1)
         errs[kahan] = abs(a[0, 0].item() - exact) / abs(exact)
     log(f"(c) Kahan check: rel err {errs[True]:.2e} compensated vs "
         f"{errs[False]:.2e} plain (fp64 sum {exact:.9e})")
@@ -371,10 +441,17 @@ def phase_g(dev, base):
             rel, absolute = rel_err(got, want)
             check(rel < 1e-5, f"{name} K={K}: {rel:.2e} >= 1e-5")
             if name not in stats:
+                links = x.numel() * K * passes
+                # fma: 2 FP32 ops a link; rsqrt: one MUFU rsqrt (and an
+                # add) a link, bound by the MUFU peak
+                ops, peak = ((2 * links, PEAK_FP32) if name == "fma_chain"
+                             else (links, probe.card_peaks(dev)["mufu_per_s"]))
+                bound_ms, bound_by = bound(ops, 2 * nbytes(x), peak)
                 stats[name] = dict(
                     max_abs_err=absolute, rel=rel,
                     ms=cuda_ms(lambda: fn(x, K, passes), 10),
-                    plain_ms=cuda_ms(lambda: ref(x, K, passes), 1))
+                    plain_ms=cuda_ms(lambda: ref(x, K, passes), 1),
+                    bound_ms=bound_ms, bound_by=bound_by)
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
                                              absolute)
             log(f"(g) {name}_kernel on (512, 512), K={K}, {passes} passes: "
@@ -400,8 +477,12 @@ def phase_g(dev, base):
         check(rel < 2e-6, f"tile_sol {kind}: {rel:.2e} >= 2e-6")
         ms, plain_ms = cuda_ms(sol, 10), cuda_ms(plain, 1)
         if kind == "newtonian":
+            bound_ms, bound_by = bound(
+                blocks * 64 * 64 * SOL_CHECK_REPS * PAIR_FLOPS[kind],
+                nbytes(tgt, src, got))
             stats["tile_sol"] = dict(max_abs_err=absolute, rel=rel, ms=ms,
-                                     plain_ms=plain_ms)
+                                     plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by)
         log(f"(g) tile_sol_kernel<{kind}> at {blocks} blocks, "
             f"{SOL_CHECK_REPS} reps: rel err {rel:.2e} (tol 2e-6), "
             f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
@@ -412,8 +493,11 @@ def phase_g(dev, base):
     tops = probe.delivered_tops(device=dev)
     torch_tops, cuda_tops = bench._capacity_probe(device=dev)
     roof = tile_sweep.roofline(dev)
+    # "base": the launch shape of the pass it bounds, N / 64 x S blocks
+    grids = {"newtonian": blocks * base["direct"]["splits"],
+             "spline": blocks * base["band"]["splits"]}
     sols = {(kind, shape): tile_sweep.sol(
-                kind, blocks if shape == "base" else None, SOL_REPS, dev)
+                kind, grids[kind] if shape == "base" else None, SOL_REPS, dev)
             for kind in ("newtonian", "spline") for shape in ("base", "full")}
     launches = dict(rl.LAUNCHES)
     check(all(v > 0 for v in launches.values()),
@@ -444,14 +528,15 @@ def phase_g(dev, base):
     nt, ns = tgt.shape[1], src.shape[1]
     base_pairs = nt * (ns - nb * cd.TN) / (base["direct"]["ms"] * 1e-3)
     # the base pass itself at full occupancy: OCC_COPIES copies of the
-    # targets (and of their band windows) against the same sources, the
-    # same work per block in OCC_COPIES times the blocks
+    # targets (and of their band windows) against the same sources at the
+    # same S, the same work per block in OCC_COPIES times the blocks
     start = base["operands"][2]
     tgt_n, start_n = tgt.repeat(1, OCC_COPIES), start.repeat(OCC_COPIES)
+    splits = base["direct"]["splits"]
 
     def base_pass(t, s):
         return cd._direct_tile(t, src, "newtonian", "acc", True, 1e-15, False,
-                               nb, s)
+                               nb, s, splits=splits)
 
     check(torch.equal(base_pass(tgt_n, start_n)[:nt], base_pass(tgt, start)),
           "base pass over copied targets differs from the base pass")
@@ -459,9 +544,10 @@ def phase_g(dev, base):
     full_ms = cuda_ms(lambda: base_pass(tgt_n, start_n), 5)
     own_pairs = nt * (ns - nb * cd.TN) / (own_ms * 1e-3)
     full_pairs = OCC_COPIES * nt * (ns - nb * cd.TN) / (full_ms * 1e-3)
-    log(f"(g) base pass occupancy: {nt // cd.BLOCK} blocks {own_ms:.3f} ms, "
-        f"{own_pairs:.6e} pairs/s; {OCC_COPIES * nt // cd.BLOCK} blocks "
-        f"{full_ms:.3f} ms, {full_pairs:.6e} pairs/s; own shape / full = "
+    log(f"(g) base pass occupancy at S={splits}: {nt // cd.BLOCK * splits} "
+        f"blocks {own_ms:.3f} ms, {own_pairs:.6e} pairs/s; "
+        f"{OCC_COPIES * nt // cd.BLOCK * splits} blocks {full_ms:.3f} ms, "
+        f"{full_pairs:.6e} pairs/s; own shape / full = "
         f"{own_pairs / full_pairs:.4f}")
     band_pairs = nt * nb * cd.TN / (base["band"]["ms"] * 1e-3)
     for shape in ("base", "full"):
@@ -529,11 +615,14 @@ def main():
     phase_h(dev, stats)
     replaces = {"direct": "nbody_streams_tpu/ops/pallas_direct.py:301",
                 "band": "nbody_streams_tpu/ops/pallas_direct.py:494"}
+    # no single PyTorch call computes a softened all-pairs sum or an
+    # fma / rsqrt chain: library_ms is null for every kernel
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [{"name": f"{key}_{'tile_' if key == 'direct' else ''}kernel",
                 "route": "cuda", "source": SOURCE,
                 "replaces": replaces[key], "launches": launches[key],
-                "max_abs_err": stats[key]["max_abs_err"],
-                "ms": stats[key]["ms"], "plain_ms": stats[key]["plain_ms"]}
+                **{k: stats[key][k] for k in keys}, "library_ms": None,
+                "splits": stats[key]["splits"]}
                for key in ("direct", "band")]
     replaces = {
         "fma_chain": "nbody_streams_tpu/ops/probe.py:62, bench.py:95, "
@@ -543,9 +632,8 @@ def main():
     kernels += [{"name": f"{key}_kernel", "route": "cuda",
                  "source": ROOFLINE_SOURCE, "replaces": replaces[key],
                  "launches": roof_launches[key],
-                 "max_abs_err": roof_stats[key]["max_abs_err"],
-                 "ms": roof_stats[key]["ms"],
-                 "plain_ms": roof_stats[key]["plain_ms"]}
+                 **{k: roof_stats[key][k] for k in keys},
+                 "library_ms": None}
                 for key in ("fma_chain", "rsqrt_chain", "tile_sol")]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

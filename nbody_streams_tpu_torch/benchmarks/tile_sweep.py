@@ -1,7 +1,8 @@
 """Single-card kernel headroom study.
 
     python -m nbody_streams_tpu_torch.benchmarks.tile_sweep \\
-        roofline | sol [kind ...] | sweep64k | sweep1m  [--device DEV]
+        roofline | sol [kind ...] | sweep64k | sweep1m | splits
+        [--device DEV]
 
 Counterpart of the repo's ``benchmarks/tile_sweep.py``:
 
@@ -16,6 +17,9 @@ Counterpart of the repo's ``benchmarks/tile_sweep.py``:
    kernels on a resident source tile (``tile_sol_kernel``), at the base
    pass's own launch shape (N / 64 = 1,024 blocks at N = 65,536) and at
    full occupancy (blocks that fill every SM).
+4. ``splits``: the base and band passes alone at N = 16k to 256k
+   for forced source-stream split counts S and for the S that
+   ``split_count`` picks, with the default geometry.
 
 Each measurement prints one JSON line that names its device, timed by
 CUDA events on a CUDA device.  The device is ``cuda`` unless one is
@@ -40,6 +44,11 @@ from ..ops.probe import probe_tile, time_call
 GEOMS_64K = [(512, 512), (256, 512), (128, 512), (512, 256), (256, 256),
              (512, 1024), (128, 128)]
 GEOMS_1M = [(512, 512), (256, 512), (512, 1024)]
+#: Split counts of the ``splits`` mode per N (None: the wrappers' own).
+SPLIT_SWEEP = {16384: [None, 1, 4, 8, 12, 16, 20, 24],
+               65536: [None, 1, 2, 4, 6, 8, 9, 10, 12, 16],
+               131072: [None, 1, 2, 4, 6, 8],
+               262144: [None, 1, 2, 3, 4, 6]}
 #: Base pass launch shape at the bench case: N / BLOCK blocks.
 BASE_BLOCKS = 65536 // cd.BLOCK
 
@@ -91,6 +100,50 @@ def sweep(n, iters, geoms, device="cuda"):
                         "gint_per_s": n * n / dt / 1e9})
         results[(tm, tn)] = dict(record, acc=acc)
     return results
+
+
+def split_sweep(n, counts, iters, device="cuda"):
+    """Time the base pass and the band pass of the sorted path at ``n``
+    particles (the sweep's cloud, one slab order) for each split count in
+    ``counts``, None being the wrappers' own choice.  Returns the records:
+    ``kernel``, ``splits`` (the S used, or "auto" on the CPU), ``ms``,
+    ``g_pairs_per_s``."""
+    device = _device(device)
+    rng = np.random.default_rng(0)
+    f32 = dict(dtype=torch.float32, device=device)
+    pos = torch.tensor(rng.normal(0, 1.0, (n, 3)), **f32)
+    gm = torch.tensor(rng.uniform(0.5, 1.5, n) * 4.3e-6, **f32)
+    h = torch.full((n,), 0.05, **f32)
+    ps = pos[cd.slab_sort_key(pos)]
+    hinv = cd._soft_pre("spline", h)
+    first, width, rows = cd.band_window(ps[:, 0], h.max())
+    nb = cd.band_rows(rows)
+    if int(width) > nb:
+        raise RuntimeError(f"band window {int(width)} > {nb} rows at n={n}")
+    start = first.clamp(0, rows - nb).to(torch.int32).contiguous()
+    tgt, src = cd._targets(ps, hinv), cd._sources(ps, gm, hinv, cd.TN)
+    ns = src.shape[1]
+    passes = {
+        "direct": (n * (ns - nb * cd.TN), lambda s: cd._direct_tile(
+            tgt, src, "newtonian", "acc", True, 1e-15, False, nb, start,
+            splits=s)),
+        "band": (n * nb * cd.TN, lambda s: cd._band(
+            tgt, src, start, "acc", True, 1e-15, False, cd.TM, cd.TN, nb,
+            splits=s))}
+    records = []
+    for kernel, (pairs, run) in passes.items():
+        for splits in counts:
+            if splits is None and device.type == "cuda":
+                sms = torch.cuda.get_device_properties(
+                    device).multi_processor_count
+                splits = cd.split_count(kernel, n, ns, sms, nb, cd.TN)
+            dt = time_call(lambda s=splits: run(s), device, iters)
+            records.append(_emit(device, {
+                "metric": "split_sweep", "kernel": kernel, "n": n,
+                "nb": nb, "splits": splits or "auto",
+                "blocks": -(-n // cd.BLOCK) * (splits or 1),
+                "ms": dt * 1e3, "g_pairs_per_s": pairs / dt / 1e9}))
+    return records
 
 
 def roofline(device="cuda", K=512, passes=5120, reps=3):
@@ -167,9 +220,12 @@ def main(argv=None):
         sweep(65536, 50, GEOMS_64K, dev)
     elif mode == "sweep1m":
         sweep(1_048_576, 2, GEOMS_1M, dev)
+    elif mode == "splits":
+        for n, counts in SPLIT_SWEEP.items():
+            split_sweep(n, counts, 30, dev)
     else:
         raise SystemExit(f"unknown mode {mode!r}: roofline | sol [kind ...] "
-                         "| sweep64k | sweep1m")
+                         "| sweep64k | sweep1m | splits")
 
 
 if __name__ == "__main__":

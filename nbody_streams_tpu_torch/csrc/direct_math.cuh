@@ -19,6 +19,18 @@ enum Kind { NEWTONIAN = 0, PLUMMER = 1, DEHNEN_K1 = 2, DEHNEN_K2 = 3,
             SPLINE = 4 };
 enum Mode { ACC = 0, POT = 1 };
 
+// rsqrt.approx with denormals flushed: MUFU.RSQ alone.  The IEEE form
+// (rsqrtf) adds a range check and a scale before and after the MUFU, one
+// FSETP and two FMUL a pair, that change only a denormal argument; every
+// r^2 here is >= eps2 (1e-15 on the main path), so both give the same bits.
+// Only this instruction flushes: the build keeps IEEE denormals (no -ftz,
+// no fast-math) for the Kahan terms and everything else.
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Pair softening from the per-particle quantities: h_eff = max(h_i, h_j)
 // is min(1/h_i, 1/h_j) for the spline and max(h_i^2, h_j^2) otherwise.
 template <int KIND>
@@ -30,25 +42,25 @@ __device__ __forceinline__ float pair_pre(float pi, float pj) {
 template <int KIND>
 __device__ __forceinline__ float force_pre(float r2, float pre) {
   if (KIND == PLUMMER) {
-    const float inv = rsqrtf(r2 + pre);
+    const float inv = rsqrt_ftz(r2 + pre);
     return inv * inv * inv;
   } else if (KIND == DEHNEN_K1) {
-    const float inv = rsqrtf(r2 + pre);
+    const float inv = rsqrt_ftz(r2 + pre);
     const float inv_d = inv * inv;
     const float inv_d32 = inv_d * inv;
     return inv_d32 + 1.5f * pre * (inv_d32 * inv_d);
   } else if (KIND == DEHNEN_K2) {
-    const float inv = rsqrtf(r2 + pre);
+    const float inv = rsqrt_ftz(r2 + pre);
     const float inv_d = inv * inv;
     const float inv_d32 = inv_d * inv;
     const float inv_d52 = inv_d32 * inv_d;
     return inv_d32 + 1.5f * pre * inv_d52 +
            3.75f * (pre * pre) * (inv_d52 * inv_d);
   } else if (KIND == NEWTONIAN) {
-    const float inv = rsqrtf(r2);
+    const float inv = rsqrt_ftz(r2);
     return inv * inv * inv;
   } else {  // SPLINE, pre = 1/h_eff (inf for h = 0: q = inf selects newton)
-    const float inv_r = rsqrtf(r2);
+    const float inv_r = rsqrt_ftz(r2);
     const float r = r2 * inv_r;
     const float newton = inv_r * inv_r * inv_r;
     const float hinv = pre;
@@ -70,20 +82,20 @@ __device__ __forceinline__ float force_pre(float r2, float pre) {
 template <int KIND>
 __device__ __forceinline__ float pot_pre(float r2, float pre) {
   if (KIND == PLUMMER) {
-    return -rsqrtf(r2 + pre);
+    return -rsqrt_ftz(r2 + pre);
   } else if (KIND == DEHNEN_K1) {
-    const float inv = rsqrtf(r2 + pre);
+    const float inv = rsqrt_ftz(r2 + pre);
     const float inv_d32 = inv * inv * inv;
     return -inv - 0.5f * pre * inv_d32;
   } else if (KIND == DEHNEN_K2) {
-    const float inv = rsqrtf(r2 + pre);
+    const float inv = rsqrt_ftz(r2 + pre);
     const float inv_d32 = inv * inv * inv;
     const float inv_d52 = inv_d32 * inv * inv;
     return -inv - 0.5f * pre * inv_d32 - 0.375f * (pre * pre) * inv_d52;
   } else if (KIND == NEWTONIAN) {
-    return -rsqrtf(r2);
+    return -rsqrt_ftz(r2);
   } else {  // SPLINE: q^2 nesting of the inner branch (ops/kernels.py)
-    const float inv_r = rsqrtf(r2);
+    const float inv_r = rsqrt_ftz(r2);
     const float r = r2 * inv_r;
     const float newton = -inv_r;
     const float hinv = pre;

@@ -27,9 +27,10 @@
 //   the same way.  On the probe tile the chains reach their f32 fixed
 //   point within ~25 links, so the host checks them against their plain
 //   versions also at K = 16, where every link moves the output;
-// - no fast-math, like direct.cu: rsqrtf is the one approximate
-//   instruction, and tile_sol_kernel runs tile_sum from direct_math.cuh,
-//   the instructions of direct_tile_kernel itself.
+// - no fast-math, like direct.cu: the rsqrt is the one approximate
+//   instruction (rsqrtf in the chain, rsqrt_ftz in tile_sum), and
+//   tile_sol_kernel runs tile_sum from direct_math.cuh, the instructions
+//   of direct_tile_kernel itself.
 // The host checks every rate against the card's peak (SM count x max
 // clock x 256 FP32 ops or 16 MUFU results per SM per clock): a reading
 // above it means work was deleted.

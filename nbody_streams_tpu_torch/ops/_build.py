@@ -79,10 +79,13 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.nbody_direct.argtypes = [i, i, i, i, p, i, p, i, p, i, i, i, f,
-                                     p, p]
+                                     i, p, p, p]
         lib.nbody_direct.restype = i
-        lib.nbody_band.argtypes = [i, i, i, p, i, p, i, p, i, i, i, f, p, p]
+        lib.nbody_band.argtypes = [i, i, i, p, i, p, i, p, i, i, i, f, i, p,
+                                   p, p]
         lib.nbody_band.restype = i
+        lib.nbody_rsqrt_pair.argtypes = [p, i, p, p, p]
+        lib.nbody_rsqrt_pair.restype = i
         lib.nbody_block_size.argtypes = []
         lib.nbody_block_size.restype = i
         for chain in (lib.nbody_fma_chain, lib.nbody_rsqrt_chain):

@@ -11,10 +11,19 @@ Counterpart of ``nbody_streams_tpu/ops/pallas_direct.py``.  Two kernels in
 * ``band_kernel`` (``_band``): the full spline over exactly those band
   rows.  It replaces the TPU's ``_band_kernel``.
 
+Each splits every target block's source stream across S blocks (the
+base pass its tiles outside the band, the band pass its band rows), so
+that N = 65,536 fills the card; ``split_count`` picks S from the launch
+shape and the card's SM count, S = 1 once the target blocks alone make
+four waves.  For S > 1 the wrapper allocates the scratch of the partial
+sums and the kernel's second launch, ``combine_kernel``, adds them in a
+fixed order.
+
 Beside each wrapper is its plain torch version (``_direct_tile_reference``,
-``_band_reference``), with the same masking and Kahan grouping.  A wrapper
-runs the plain version only for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+``_band_reference``), with the same masking, splits and Kahan grouping.
+A wrapper runs the plain version only for tensors on the CPU; for a CUDA
+tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
+launches.
 
 The host side mirrors the TPU path: for the spline at N >= 16384 the
 particles are sorted along x (``slab_sort_key``), a band window of source
@@ -38,7 +47,7 @@ from .pairwise import kahan_add
 
 __all__ = ["cuda_accel", "cuda_potential", "cuda_accel_2set",
            "cuda_potential_2set", "uses_spatial_sort", "slab_sort_key",
-           "LAUNCHES", "BRANCHES"]
+           "split_count", "LAUNCHES", "BRANCHES"]
 
 # Band geometry of the sorted path: targets per band tile and sources per
 # band row.  The band tile bounds each target's window of near source rows;
@@ -49,6 +58,16 @@ TN = 512
 BLOCK = 64
 # The spline takes the sorted two-pass path from this N on.
 SORT_MIN_N = 16384
+
+# Source-stream splits (split_count): a wave of the card is
+# RESIDENT_BLOCKS blocks of BLOCK a SM (48 registers a thread; the
+# occupancy API gives 20 for tile_sol_kernel, the same registers and
+# shared memory); a grid aims at SPLIT_WAVES waves, and no split sums
+# fewer than MIN_SPLIT_TILES staged tiles.  `tile_sweep splits` measured
+# the choice (PERF.md).
+RESIDENT_BLOCKS = 20
+SPLIT_WAVES = 4
+MIN_SPLIT_TILES = 8
 
 #: Kernel launches, counted by the wrappers where they launch (plain ints).
 LAUNCHES = {"direct": 0, "band": 0}
@@ -240,51 +259,134 @@ def _kahan_step(total, comp, part, kahan, keep=None):
 # direct_tile_kernel and its plain version
 # ---------------------------------------------------------------------------
 
+def _split_of(k, n, splits):
+    """The split whose share of ``n`` units holds unit ``k``: split s
+    takes ``[s*n // splits, (s+1)*n // splits)`` (csrc split_range)."""
+    return ((k + 1) * splits - 1) // n
+
+
+def _combine(total, comp, kahan):
+    """Plain version of ``combine_kernel``: the (S, ...) partials added in
+    the order s = 0..S-1; the running compensation takes ``comp[s]``
+    before ``total[s]`` is added (Kahan tiers)."""
+    out, c = total[0], comp[0]
+    for s in range(1, total.shape[0]):
+        if kahan:
+            out, c = kahan_add(out, c + comp[s], total[s])
+        else:
+            out = out + total[s]
+    return out
+
+
 def _direct_tile_reference(tgt, src, kind, mode, kahan, eps2,
-                           mask_self=False, nb=0, start=None, tm=TM, tn=TN):
+                           mask_self=False, nb=0, start=None, tm=TM, tn=TN,
+                           splits=1):
     """Plain torch version of ``direct_tile_kernel``: all targets at once,
     one staged tile of BLOCK sources per step, plain fp32 within the tile
     and Kahan across tiles; with ``nb`` the tiles inside each target
-    tile's band ``[start*tn, (start+nb)*tn)`` are left out."""
+    tile's band ``[start*tn, (start+nb)*tn)`` are left out.  The tiles a
+    target sums are shared in order among ``splits`` partial sums, which
+    ``_combine`` adds."""
     nt, ns = tgt.shape[1], src.shape[1]
+    tiles = ns // BLOCK
+    dev = tgt.device
     xt, yt, zt, pt = (tgt[k][:, None] for k in range(4))
     width = 3 if mode == "acc" else 1
-    total = torch.zeros((nt, width), dtype=tgt.dtype, device=tgt.device)
+    total = torch.zeros((splits, nt, width), dtype=tgt.dtype, device=dev)
     comp = torch.zeros_like(total)
-    i = torch.arange(nt, device=tgt.device)[:, None]
-    lane = torch.arange(BLOCK, device=tgt.device)[None, :]
+    rows = torch.arange(nt, device=dev)
+    lane = torch.arange(BLOCK, device=dev)[None, :]
+    lo = torch.zeros(nt, dtype=torch.int64, device=dev)
+    band = torch.zeros_like(lo)       # each target's band tiles [lo, +band)
     if nb:
-        lo = start.to(torch.int64)[i // tm] * tn
-        hi = lo + nb * tn
-    for j0 in range(0, ns, BLOCK):
+        first = start.to(torch.int64)[rows // tm] * (tn // BLOCK)
+        lo = first.clamp(0, tiles)
+        band = (first + nb * (tn // BLOCK)).clamp(0, tiles) - lo
+    count = (tiles - band).clamp(min=1)
+    for jt in range(tiles):
+        j0 = jt * BLOCK
         part = _pair_sum(kind, mode, eps2, xt, yt, zt, pt,
                          *(src[k, j0:j0 + BLOCK][None, :] for k in range(5)),
-                         self_pair=(i == j0 + lane) if mask_self else None)
-        keep = ((j0 < lo) | (j0 >= hi)) if nb else None
-        total, comp = _kahan_step(total, comp, part, kahan, keep)
-    return total if mode == "acc" else total[:, 0]
+                         self_pair=(rows[:, None] == j0 + lane)
+                         if mask_self else None)
+        keep = (jt < lo) | (jt >= lo + band)
+        k = torch.where(jt < lo, jt, jt - band)
+        s = _split_of(k, count, splits).clamp(0, splits - 1)
+        t, c = _kahan_step(total[s, rows], comp[s, rows], part, kahan,
+                           keep[:, None])
+        total[s, rows], comp[s, rows] = t, c
+    out = _combine(total, comp, kahan)
+    return out if mode == "acc" else out[:, 0]
+
+
+def split_count(kernel, nt, ns, sms, nb=0, tn=TN):
+    """S, the blocks that share each target block's source stream in
+    ``kernel`` ('direct' or 'band') for ``nt`` targets and ``ns`` sources
+    (``nb`` band rows of ``tn``) on a card of ``sms`` SMs.
+
+    S = 1 when the target blocks alone make SPLIT_WAVES waves of
+    RESIDENT_BLOCKS a SM; otherwise about the S that makes them, each
+    split taking ``units // S`` units (source tiles, or whole band rows)
+    but no fewer than MIN_SPLIT_TILES tiles."""
+    if kernel == "direct":
+        units, per_unit = ns // BLOCK - nb * (tn // BLOCK), 1
+    elif kernel == "band":
+        units, per_unit = nb, tn // BLOCK
+    else:
+        raise ValueError(f"kernel must be 'direct' or 'band', got {kernel!r}")
+    want = -(-SPLIT_WAVES * RESIDENT_BLOCKS * sms // -(-nt // BLOCK))
+    if want <= 1 or units <= 1:
+        return 1
+    per = max(units // want, -(-MIN_SPLIT_TILES // per_unit), 1)
+    return -(-units // per)
+
+
+def _splits(kernel, tgt, src, nb, tn, splits):
+    """The wrapper's S: ``splits`` if given, else ``split_count`` for the
+    card that holds the operands, 1 on the CPU."""
+    if splits is None and tgt.is_cuda:
+        sms = torch.cuda.get_device_properties(
+            tgt.device).multi_processor_count
+        splits = split_count(kernel, tgt.shape[1], src.shape[1], sms, nb, tn)
+    elif splits is None:
+        splits = 1
+    if not 1 <= splits <= 65535:
+        raise ValueError(f"splits={splits} must be in [1, 65535]")
+    return int(splits)
+
+
+def _scratch(splits, out):
+    """The (2, S, out.numel()) partial sums of S > 1 (None for S = 1)."""
+    if splits == 1:
+        return None
+    return torch.empty((2, splits, out.numel()), dtype=torch.float32,
+                       device=out.device)
 
 
 def _direct_tile(tgt, src, kind, mode, kahan, eps2, mask_self=False, nb=0,
-                 start=None, tm=TM, tn=TN):
+                 start=None, tm=TM, tn=TN, splits=None):
     """All-pairs sum of ``tgt`` (4, nt) against ``src`` (5, ns) through
-    ``direct_tile_kernel``; (nt, 3) for acc, (nt,) for pot."""
+    ``direct_tile_kernel``; (nt, 3) for acc, (nt,) for pot.  ``splits``
+    forces S (default: ``split_count`` on a card, 1 on the CPU)."""
     validate_kernel(kind)
     _check_operands(tgt, src, start, nb, tm, tn)
+    splits = _splits("direct", tgt, src, nb, tn, splits)
     if not tgt.is_cuda:
         return _direct_tile_reference(tgt, src, kind, mode, kahan, eps2,
-                                      mask_self, nb, start, tm, tn)
+                                      mask_self, nb, start, tm, tn, splits)
     from . import _build
 
     nt, ns = tgt.shape[1], src.shape[1]
     out = torch.empty((nt, 3) if mode == "acc" else (nt,),
                       dtype=torch.float32, device=tgt.device)
+    part = _scratch(splits, out)
     with torch.cuda.device(tgt.device):
         rc = _kernel_lib().nbody_direct(
             KERNEL_IDS[kind], _MODES[mode], int(kahan), int(nb),
             tgt.data_ptr(), nt, src.data_ptr(), ns,
             None if start is None else start.data_ptr(), tm, tn,
-            int(mask_self), float(eps2), out.data_ptr(),
+            int(mask_self), float(eps2), splits,
+            None if part is None else part.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "direct_tile_kernel")
     LAUNCHES["direct"] += 1
@@ -296,14 +398,17 @@ def _direct_tile(tgt, src, kind, mode, kahan, eps2, mask_self=False, nb=0,
 # ---------------------------------------------------------------------------
 
 def _band_reference(tgt, src, start, mode, kahan, eps2, mask_self, tm, tn,
-                    nb):
+                    nb, splits=1):
     """Plain torch version of ``band_kernel``: for each target, the full
     spline over the ``nb`` source rows of ``tn`` from its tile's
-    ``start``; plain fp32 within a row, Kahan across rows."""
+    ``start``; plain fp32 within a row, Kahan across rows.  The rows are
+    shared in order among ``splits`` partial sums, which ``_combine``
+    adds."""
     nt = tgt.shape[1]
     xt, yt, zt, pt = (tgt[k][:, None] for k in range(4))
     width = 3 if mode == "acc" else 1
-    total = torch.zeros((nt, width), dtype=tgt.dtype, device=tgt.device)
+    total = torch.zeros((splits, nt, width), dtype=tgt.dtype,
+                        device=tgt.device)
     comp = torch.zeros_like(total)
     i = torch.arange(nt, device=tgt.device)
     row0 = start.to(torch.int64)[i // tm]
@@ -313,34 +418,57 @@ def _band_reference(tgt, src, start, mode, kahan, eps2, mask_self, tm, tn,
         part = _pair_sum("spline", mode, eps2, xt, yt, zt, pt,
                          *(src[k][j] for k in range(5)),
                          self_pair=(j == i[:, None]) if mask_self else None)
-        total, comp = _kahan_step(total, comp, part, kahan)
-    return total if mode == "acc" else total[:, 0]
+        s = _split_of(b, nb, splits)
+        total[s], comp[s] = _kahan_step(total[s], comp[s], part, kahan)
+    out = _combine(total, comp, kahan)
+    return out if mode == "acc" else out[:, 0]
 
 
-def _band(tgt, src, start, mode, kahan, eps2, mask_self, tm, tn, nb):
+def _band(tgt, src, start, mode, kahan, eps2, mask_self, tm, tn, nb,
+          splits=None):
     """Spline band pass through ``band_kernel``: (nt, 3) or (nt,).  A
     window outside the sources (``start`` < 0 or ``start + nb`` past the
-    last row) gives NaN for that tile's targets on the card."""
+    last row) gives NaN for that tile's targets on the card.  ``splits``
+    forces S (default: ``split_count`` on a card, 1 on the CPU)."""
     if nb <= 0:
         raise ValueError(f"band width nb={nb} must be positive")
     _check_operands(tgt, src, start, nb, tm, tn)
+    splits = _splits("band", tgt, src, nb, tn, splits)
     if not tgt.is_cuda:
         return _band_reference(tgt, src, start, mode, kahan, eps2,
-                               mask_self, tm, tn, nb)
+                               mask_self, tm, tn, nb, splits)
     from . import _build
 
     nt, ns = tgt.shape[1], src.shape[1]
     out = torch.empty((nt, 3) if mode == "acc" else (nt,),
                       dtype=torch.float32, device=tgt.device)
+    part = _scratch(splits, out)
     with torch.cuda.device(tgt.device):
         rc = _kernel_lib().nbody_band(
             _MODES[mode], int(kahan), int(nb), tgt.data_ptr(), nt,
             src.data_ptr(), ns, start.data_ptr(), tm, tn, int(mask_self),
-            float(eps2), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            float(eps2), splits, None if part is None else part.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "band_kernel")
     LAUNCHES["band"] += 1
     return out
+
+
+def _rsqrt_pair(x):
+    """IEEE ``rsqrtf`` and the kernels' ``rsqrt_ftz`` of float32 ``x`` on
+    the card (``rsqrt_pair_kernel``), for the check that they agree on
+    normal arguments; not on the force path and not counted."""
+    if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float32 CUDA tensor")
+    from . import _build
+
+    ieee, ftz = torch.empty_like(x), torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _kernel_lib().nbody_rsqrt_pair(
+            x.data_ptr(), x.numel(), ieee.data_ptr(), ftz.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "rsqrt_pair_kernel")
+    return ieee, ftz
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ file imports no jax, so it also runs where only torch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances (max |kernel - plain| / max |plain|): 2e-6 with Kahan and 1e-5
-without (fp32 sums in another order; rsqrt within 2 ulp on both sides);
+Tolerances (max |kernel - plain| / max |plain|), the plain version called
+with the kernel's split count S: 2e-6 with Kahan and 1e-5 without (fp32
+sums in another order within a tile; rsqrt within 2 ulp on both sides);
 3e-6 against the fp64 oracle (the JAX package's kernel-vs-oracle
 tolerance); 1e-6 between the 'cuda' and 'torch' impls over 10 KDK steps.
 The roofline chains: 1e-5 (the kernel contracts acc * v + v into one
@@ -47,6 +48,10 @@ def dev():
     return torch.device("cuda")
 
 
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _rel(got, want):
     d = (got.double() - want.double()).abs().max()
     return float(d / want.double().abs().max())
@@ -55,7 +60,8 @@ def _rel(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", KINDS)
 def test_direct_tile_kernel_matches_plain(dev, kind):
-    """All laws x acc/pot x Kahan on/off at a ragged N = 3,000."""
+    """All laws x acc/pot x Kahan on/off at a ragged N = 3,000, at the
+    wrapper's own S and at S = 1, 2 and 4."""
     rng = np.random.default_rng(5)
     n = 3000
     pos = torch.tensor(rng.normal(0, 1, (n, 3)), dtype=torch.float32,
@@ -65,15 +71,19 @@ def test_direct_tile_kernel_matches_plain(dev, kind):
     pre = cd._soft_pre(kind, torch.tensor(rng.uniform(0.05, 0.3, n),
                                           dtype=torch.float32, device=dev))
     tgt, src = cd._targets(pos, pre), cd._sources(pos, gm, pre, cd.TN)
+    own = cd.split_count("direct", n, src.shape[1], _sms(dev))
+    assert own > 1
     for mode in ("acc", "pot"):
         for kahan in (True, False):
             args = (tgt, src, kind, mode, kahan, 1e-15, mode == "pot")
-            before = cd.LAUNCHES["direct"]
-            got = cd._direct_tile(*args)
-            torch.cuda.synchronize()
-            assert cd.LAUNCHES["direct"] == before + 1
-            want = cd._direct_tile_reference(*args)
-            assert _rel(got, want) < (2e-6 if kahan else 1e-5)
+            for splits in (None, 1, 2, 4):
+                before = cd.LAUNCHES["direct"]
+                got = cd._direct_tile(*args, splits=splits)
+                torch.cuda.synchronize()
+                assert cd.LAUNCHES["direct"] == before + 1
+                want = cd._direct_tile_reference(*args,
+                                                 splits=splits or own)
+                assert _rel(got, want) < (2e-6 if kahan else 1e-5)
 
 
 def _bench_operands(dev):
@@ -93,18 +103,69 @@ def _bench_operands(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["acc", "pot"])
 def test_two_pass_kernels_match_plain(dev, mode):
-    """skip_band base pass and band pass at the bench case's N = 65,536."""
+    """skip_band base pass and band pass at the bench case's N = 65,536,
+    each at the S the wrapper picks (more than one at this N)."""
     tgt, src, start, nb = _bench_operands(dev)
     mask = mode == "pot"
+    ns = src.shape[1]
+    s_base = cd.split_count("direct", 65536, ns, _sms(dev), nb, cd.TN)
+    s_band = cd.split_count("band", 65536, ns, _sms(dev), nb, cd.TN)
+    assert s_base > 1 and s_band > 1
     base = cd._direct_tile(tgt, src, "newtonian", mode, True, 1e-15, mask,
                            nb, start)
     band = cd._band(tgt, src, start, mode, True, 1e-15, mask, cd.TM, cd.TN,
                     nb)
     torch.cuda.synchronize()
     assert _rel(base, cd._direct_tile_reference(
-        tgt, src, "newtonian", mode, True, 1e-15, mask, nb, start)) < 2e-6
+        tgt, src, "newtonian", mode, True, 1e-15, mask, nb, start,
+        splits=s_base)) < 2e-6
     assert _rel(band, cd._band_reference(
-        tgt, src, start, mode, True, 1e-15, mask, cd.TM, cd.TN, nb)) < 2e-6
+        tgt, src, start, mode, True, 1e-15, mask, cd.TM, cd.TN, nb,
+        splits=s_band)) < 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["acc", "pot"])
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_split_two_pass_kernels_match_plain(dev, splits, mode):
+    """Both passes at a forced S, against their plain versions at that S,
+    and the same bits on a repeated launch (the fixed-order combine)."""
+    tgt, src, start, nb = _bench_operands(dev)
+    mask = mode == "pot"
+    runs = {"base": lambda: cd._direct_tile(
+                tgt, src, "newtonian", mode, True, 1e-15, mask, nb, start,
+                splits=splits),
+            "band": lambda: cd._band(tgt, src, start, mode, True, 1e-15, mask,
+                                     cd.TM, cd.TN, nb, splits=splits)}
+    want = {"base": cd._direct_tile_reference(
+                tgt, src, "newtonian", mode, True, 1e-15, mask, nb, start,
+                splits=splits),
+            "band": cd._band_reference(tgt, src, start, mode, True, 1e-15,
+                                       mask, cd.TM, cd.TN, nb, splits)}
+    for name, run in runs.items():
+        got = run()
+        again = run()
+        torch.cuda.synchronize()
+        assert _rel(got, want[name]) < 2e-6, name
+        assert torch.equal(got, again), name
+
+
+@pytest.mark.cuda
+def test_rsqrt_ftz_matches_ieee_on_normal_arguments(dev):
+    """rsqrt_ftz (the force kernels' rsqrt) gives rsqrtf's bits for every
+    normal float32 from the least normal to the largest, and differs only
+    below it, where it flushes the argument to zero."""
+    rng = np.random.default_rng(1)
+    x = np.concatenate([
+        np.geomspace(np.finfo(np.float32).tiny, np.finfo(np.float32).max,
+                     1 << 20),
+        rng.uniform(1e-15, 1e4, 1 << 20)]).astype(np.float32)
+    xt = torch.tensor(x, device=dev)
+    ieee, ftz = cd._rsqrt_pair(xt)
+    assert torch.equal(ieee, ftz)
+    denormal = torch.tensor([1e-40, 1e-44], dtype=torch.float32, device=dev)
+    ieee, ftz = cd._rsqrt_pair(denormal)
+    assert torch.isfinite(ieee).all() and torch.isinf(ftz).all()
 
 
 @pytest.mark.cuda
@@ -139,8 +200,10 @@ def test_kahan_beats_plain_fp32(dev):
     src = cd._sources(torch.tensor(xs, dtype=torch.float32, device=dev),
                       torch.tensor(gm, dtype=torch.float32, device=dev),
                       torch.zeros(n, device=dev), cd.TN)
-    err = {k: abs(cd._direct_tile(tgt, src, "newtonian", "acc", k,
-                                  1e-15)[0, 0].item() - exact) / exact
+    # one stream (S = 1): splits would cut the run of light sources into
+    # partial sums that plain fp32 no longer drops
+    err = {k: abs(cd._direct_tile(tgt, src, "newtonian", "acc", k, 1e-15,
+                                  splits=1)[0, 0].item() - exact) / exact
            for k in (True, False)}
     assert err[True] * 10 < err[False]
 

@@ -154,6 +154,227 @@ def test_band_reference_matches_pallas(cluster, mode, kahan):
 
 
 # ---------------------------------------------------------------------------
+# source-stream splits: each target's stream shared among S partial sums
+# and combined in order.  Tolerance TOL (1e-6 * max) against the Pallas
+# kernels: the splits reorder the fp32 sums, nothing else.
+# ---------------------------------------------------------------------------
+
+SPLITS = [1, 2, 3, 5]
+
+
+def _split_band_setup(cluster, nb):
+    """tm = tn = 128 over N = 700: 6 source rows (12 tiles), one band
+    start per target tile."""
+    pos, gm, soft = cluster
+    tm = tn = 128
+    rows = -(-pos.shape[0] // tn)
+    start = np.random.default_rng(8).integers(
+        0, rows - nb + 1, -(-pos.shape[0] // tm)).astype(np.int32)
+    return pos, gm, soft, tm, tn, start
+
+
+@pytest.fixture(scope="module")
+def pallas_base_pass(cluster):
+    """The Pallas skip_band base pass with 2 band rows (4 of 12 tiles), per
+    mode."""
+    pos, gm, soft, tm, tn, start = _split_band_setup(cluster, 2)
+    return {mode: np.asarray(jpd._pallas_direct(
+        _j(pos), _j(soft), _j(pos), _j(gm), _j(soft), "newtonian", True,
+        mode, 1e-15, tm=tm, tn=tn, max_sub=2, interpret=True,
+        mask_self=mode == "pot", skip_band=2, band_start=jnp.asarray(start)))
+        for mode in ("acc", "pot")}
+
+
+@pytest.mark.parametrize("mode", ["acc", "pot"])
+@pytest.mark.parametrize("splits", SPLITS)
+def test_split_base_pass_matches_pallas(cluster, pallas_base_pass, splits,
+                                        mode):
+    """8 non-band tiles a target: S = 3 and 5 do not divide them, and for
+    every band start but the first some split holds tiles on both sides of
+    the band."""
+    pos, gm, soft, tm, tn, start = _split_band_setup(cluster, 2)
+    pre = cd._soft_pre("newtonian", _t(soft))
+    tgt = cd._targets(_t(pos), pre)
+    src = cd._sources(_t(pos), _t(gm), pre, tn)
+    got = cd._direct_tile(tgt, src, "newtonian", mode, True, 1e-15,
+                          mode == "pot", 2, torch.tensor(start), tm, tn,
+                          splits=splits)
+    assert _rel(got, pallas_base_pass[mode]) < TOL
+    # a split straddles the band: its share of the 8 non-band tiles runs
+    # across the band's first tile index
+    lo = start.astype(np.int64) * (tn // cd.BLOCK)
+    bounds = [s * 8 // splits for s in range(splits + 1)]
+    straddles = any(b0 < l < b1 for l in lo
+                    for b0, b1 in zip(bounds, bounds[1:]))
+    assert straddles == (splits < 8 and (lo > 0).any())
+
+
+@pytest.mark.parametrize("mode", ["acc", "pot"])
+@pytest.mark.parametrize("splits", SPLITS)
+def test_split_band_pass_matches_pallas(cluster, splits, mode):
+    """5 band rows of 128: S = 2, 3 share them unevenly, S = 5 one each."""
+    pos, gm, soft, tm, tn, start = _split_band_setup(cluster, 5)
+    hinv = np.where(soft > 0, 1.0 / soft, np.inf).astype(np.float32)
+    mask = mode == "pot"
+    want = jpd._pallas_band_correction(
+        _j(pos), _j(gm), _j(hinv), jnp.asarray(start), mode, 1e-15, tm, tn,
+        5, interpret=True, mask_self=mask, kahan=True)
+    tgt = cd._targets(_t(pos), _t(hinv))
+    src = cd._sources(_t(pos), _t(gm), _t(hinv), tn)
+    got = cd._band(tgt, src, torch.tensor(start), mode, True, 1e-15, mask,
+                   tm, tn, 5, splits=splits)
+    assert _rel(got, want) < TOL
+
+
+@pytest.mark.parametrize("kind,mode", [("spline", "pot"),
+                                       ("dehnen_k2", "acc")])
+def test_split_single_pass_matches_pallas(cluster, kind, mode):
+    """The single pass (no band) shares its 12 tiles among 5 splits; the
+    potential keeps its self mask."""
+    pos, gm, soft = cluster
+    mask = mode == "pot"
+    want = jpd._pallas_direct(_j(pos), _j(soft), _j(pos), _j(gm), _j(soft),
+                              kind, True, mode, 1e-15, interpret=True,
+                              mask_self=mask)
+    pre = cd._soft_pre(kind, _t(soft))
+    tgt = cd._targets(_t(pos), pre)
+    src = cd._sources(_t(pos), _t(gm), pre, cd.TN)
+    got = cd._direct_tile(tgt, src, kind, mode, True, 1e-15, mask,
+                          splits=5)
+    assert _rel(got, want) < TOL
+
+
+def _one_stream_base(tgt, src, kind, mode, kahan, eps2, mask_self, nb, start,
+                     tm, tn):
+    """The single-stream sum of the base pass as it was before the splits:
+    every tile in order, the band's tiles skipped."""
+    nt, ns = tgt.shape[1], src.shape[1]
+    xt, yt, zt, pt = (tgt[k][:, None] for k in range(4))
+    total = torch.zeros((nt, 3 if mode == "acc" else 1))
+    comp = torch.zeros_like(total)
+    i = torch.arange(nt)[:, None]
+    lane = torch.arange(cd.BLOCK)[None, :]
+    lo = start.to(torch.int64)[i // tm] * tn
+    for j0 in range(0, ns, cd.BLOCK):
+        part = cd._pair_sum(kind, mode, eps2, xt, yt, zt, pt,
+                            *(src[k, j0:j0 + cd.BLOCK][None, :]
+                              for k in range(5)),
+                            self_pair=(i == j0 + lane) if mask_self else None)
+        total, comp = cd._kahan_step(total, comp, part, kahan,
+                                     (j0 < lo) | (j0 >= lo + nb * tn))
+    return total if mode == "acc" else total[:, 0]
+
+
+def _one_stream_band(tgt, src, start, mode, kahan, eps2, mask_self, tm, tn,
+                     nb):
+    """The single-stream band sum before the splits: rows in order."""
+    nt = tgt.shape[1]
+    xt, yt, zt, pt = (tgt[k][:, None] for k in range(4))
+    total = torch.zeros((nt, 3 if mode == "acc" else 1))
+    comp = torch.zeros_like(total)
+    i = torch.arange(nt)
+    row0 = start.to(torch.int64)[i // tm]
+    for b in range(nb):
+        j = ((row0 + b) * tn)[:, None] + torch.arange(tn)[None, :]
+        part = cd._pair_sum("spline", mode, eps2, xt, yt, zt, pt,
+                            *(src[k][j] for k in range(5)),
+                            self_pair=(j == i[:, None]) if mask_self else None)
+        total, comp = cd._kahan_step(total, comp, part, kahan)
+    return total if mode == "acc" else total[:, 0]
+
+
+@pytest.mark.parametrize("mode", ["acc", "pot"])
+@pytest.mark.parametrize("kahan", [True, False])
+def test_one_split_is_the_single_stream_sum_bit_for_bit(cluster, mode,
+                                                        kahan):
+    pos, gm, soft, tm, tn, start = _split_band_setup(cluster, 2)
+    mask = mode == "pot"
+    st = torch.tensor(start)
+    pre = cd._soft_pre("newtonian", _t(soft))
+    tgt = cd._targets(_t(pos), pre)
+    src = cd._sources(_t(pos), _t(gm), pre, tn)
+    assert torch.equal(
+        cd._direct_tile_reference(tgt, src, "newtonian", mode, kahan, 1e-15,
+                                  mask, 2, st, tm, tn, splits=1),
+        _one_stream_base(tgt, src, "newtonian", mode, kahan, 1e-15, mask, 2,
+                         st, tm, tn))
+    hinv = cd._soft_pre("spline", _t(soft))
+    tgt = cd._targets(_t(pos), hinv)
+    src = cd._sources(_t(pos), _t(gm), hinv, tn)
+    assert torch.equal(
+        cd._band_reference(tgt, src, st, mode, kahan, 1e-15, mask, tm, tn, 2,
+                           splits=1),
+        _one_stream_band(tgt, src, st, mode, kahan, 1e-15, mask, tm, tn, 2))
+
+
+def test_split_of_follows_the_kernel_shares():
+    """Unit k of n lies in split s exactly when s*n // S <= k < (s+1)*n // S
+    (csrc split_range), for shares that divide and that do not."""
+    for n in range(1, 21):
+        for splits in range(1, 8):
+            for s in range(splits):
+                for k in range(s * n // splits, (s + 1) * n // splits):
+                    assert cd._split_of(k, n, splits) == s
+
+
+def test_split_count_is_a_function_of_the_launch_shape_and_sms():
+    """S from (N, SM count) alone: the same inputs give the same S; S = 1
+    once the target blocks alone make SPLIT_WAVES waves; no split sums
+    fewer than MIN_SPLIT_TILES tiles."""
+    def base(n, sms):
+        ns = -(-n // cd.TN) * cd.TN
+        return cd.split_count("direct", n, ns, sms,
+                              cd.band_rows(ns // cd.TN), cd.TN)
+
+    def band(n, sms):
+        ns = -(-n // cd.TN) * cd.TN
+        return cd.split_count("band", n, ns, sms, cd.band_rows(ns // cd.TN),
+                              cd.TN)
+
+    assert [base(n, 132) for n in (16384, 65536, 262144, 1048576)] == \
+        [20, 12, 3, 1]
+    assert [band(n, 132) for n in (16384, 65536, 262144, 1048576)] == \
+        [12, 12, 4, 1]
+    assert base(65536, 132) == base(65536, 132)
+    assert base(65536, 12) == 1            # 1,024 blocks: 4 waves of 12 SMs
+    assert cd.split_count("direct", 1, 65536, 132) == 1024 // \
+        cd.MIN_SPLIT_TILES
+    for n in (4096, 16384, 65536, 131072):
+        ns = -(-n // cd.TN) * cd.TN
+        nb = cd.band_rows(ns // cd.TN)
+        s = base(n, 132)
+        assert (ns // cd.BLOCK - nb * cd.TN // cd.BLOCK) // s >= \
+            cd.MIN_SPLIT_TILES or s == 1
+        assert 1 <= band(n, 132) <= nb
+    with pytest.raises(ValueError, match="kernel"):
+        cd.split_count("single", 65536, 65536, 132)
+
+
+def test_self_sorted_two_pass_with_splits_matches_pallas(sorted_case,
+                                                         jax_sorted_acc):
+    """The sorted path's two passes with S = 2 and 3 (the band of 12 rows
+    in 2 and 3 shares, the 12 non-band rows' 24 tiles likewise)."""
+    pos, gm, soft = sorted_case
+    ps, gs, hs = _t(pos), _t(gm), _t(soft)
+    order = cd.slab_sort_key(ps)
+    ps, gs, hs = ps[order], gs[order], hs[order]
+    hinv = cd._soft_pre("spline", hs)
+    first, width, rows = cd.band_window(ps[:, 0], hs.max(), **SORT_KW)
+    nb = cd.band_rows(rows)
+    assert int(width) <= nb
+    start = first.clamp(0, rows - nb).to(torch.int32)
+    tgt, src = cd._targets(ps, hinv), cd._sources(ps, gs, hinv, SORT_KW["tn"])
+    for splits in (2, 3):
+        out = (cd._direct_tile(tgt, src, "newtonian", "acc", True, 1e-15,
+                               False, nb, start, splits=splits, **SORT_KW)
+               + cd._band(tgt, src, start, "acc", True, 1e-15, False,
+                          nb=nb, splits=splits, **SORT_KW))
+        got = torch.empty_like(out)
+        got[order] = out
+        assert _rel(got, jax_sorted_acc) < TOL
+
+
+# ---------------------------------------------------------------------------
 # the sorted two-pass path
 # ---------------------------------------------------------------------------
 
@@ -291,6 +512,8 @@ def test_geometry_and_operands_are_checked(cluster):
     with pytest.raises(ValueError, match="start must be"):
         cd._direct_tile(tgt, src, "newtonian", "acc", True, 1e-15, nb=2,
                         start=torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError, match="splits"):
+        cd._direct_tile(tgt, src, "plummer", "acc", True, 1e-15, splits=0)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ import torch
 from nbody_streams_tpu.ops import pallas_direct as jpd
 from nbody_streams_tpu.ops.pairwise import accel_tile as j_accel_tile
 from nbody_streams_tpu_torch import bench, bench_suite
-from nbody_streams_tpu_torch.benchmarks import tile_sweep
+from nbody_streams_tpu_torch.benchmarks import sass, tile_sweep
 from nbody_streams_tpu_torch.ops import cuda_direct as cd
 from nbody_streams_tpu_torch.ops import probe
 from nbody_streams_tpu_torch.ops import roofline as rl
@@ -328,3 +328,63 @@ def test_bench_suite_runs_on_cpu():
 def test_bench_suite_has_no_sharded_row():
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         bench_suite.main_sharded()
+
+
+def test_split_sweep_runs_on_cpu_and_needs_a_named_device(monkeypatch):
+    recs = tile_sweep.split_sweep(4096, [None, 2], 1, "cpu")
+    assert [(r["kernel"], r["splits"]) for r in recs] == [
+        ("direct", "auto"), ("direct", 2), ("band", "auto"), ("band", 2)]
+    assert {r["device"] for r in recs} == {"cpu"}
+    assert recs[3]["blocks"] == 2 * 4096 // cd.BLOCK
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tile_sweep.split_sweep(4096, [1], 1)
+
+
+# A cuobjdump -sass listing in miniature: the base pass's inner loop (two
+# pairs a trip, branch to a label) and the band kernel's (one pair, branch
+# to an address), with ptxas's -v report for the first.
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_118direct_tile_kernelILi0ELi0ELb1ELb1EEEvPKf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;  /* 0x0 */
+.L_x_1:
+        /*0010*/                   LDS.128 R4, [UR4] ;  /* 0x0 */
+        /*0020*/                   FADD R8, R4, -R2 ;  /* 0x0 */
+        /*0030*/                   FFMA R9, R8, R8, R3 ;  /* 0x0 */
+        /*0040*/                   MUFU.RSQ R10, R9 ;  /* 0x0 */
+        /*0050*/                   FMUL R11, R10, R10 ;  /* 0x0 */
+        /*0060*/                   MUFU.RSQ R12, R9 ;  /* 0x0 */
+        /*0070*/                   NOP ;  /* 0x0 */
+        /*0080*/               @P0 BRA `(.L_x_1) ;  /* 0x0 */
+        /*0090*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;  /* 0x0 */
+        /*00a0*/               @P1 BRA `(.L_x_0) ;  /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_111band_kernelILi0ELb1EEEvPKf
+        /*0000*/                   FSETP.GEU.AND P0, PT, R1, R2, PT ;  /* 0x0 */
+        /*0010*/                   MUFU.RSQ R10, R9 ;  /* 0x0 */
+        /*0020*/              @!P0 BRA 0x0 ;  /* 0x0 */
+"""
+_LOG = """ptxas info    : Compiling entry function \
+'_ZN12_GLOBAL__N_118direct_tile_kernelILi0ELi0ELb1ELb1EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118direct
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 1280 bytes smem
+"""
+
+
+def test_sass_reader_counts_the_inner_loop(monkeypatch):
+    monkeypatch.setattr(sass, "KERNELS", {
+        "base": "direct_tile_kernelILi0ELi0ELb1ELb1E",
+        "band": "band_kernelILi0ELb1E"})
+    prof = sass.profile(_SASS, _LOG)
+    base, band = prof["base"], prof["band"]
+    assert base["pairs_per_trip"] == 2 and base["slots_per_pair"] == 3.5
+    assert base["per_pair"] == {"BRA": 0.5, "FADD": 0.5, "FFMA": 0.5,
+                                "FMUL": 0.5, "LDS": 0.5, "MUFU.RSQ": 1.0}
+    assert (base["registers"], base["spill_bytes"]) == (40, 12)
+    assert band["slots_per_pair"] == 3 and band["per_pair"]["FSETP"] == 1
+    assert band["registers"] is None
+    assert sass.opcode("@!P0 FSETP.GEU.AND P0, PT, R1, R2, PT") == "FSETP"
+    monkeypatch.setattr(sass, "KERNELS", {"combine": "combine_kernel"})
+    with pytest.raises(KeyError, match="combine"):
+        sass.profile(_SASS, "")
