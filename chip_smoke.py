@@ -32,17 +32,29 @@ roofline, speed of light, tile sweep, bench suite).  Phases:
   (h) the tile sweep at N = 65,536 (every geometry within 2e-6 * max of
       the default's accelerations), bench_suite sections 1-3 (errors vs
       the fp64 oracle <= 3e-6), and the single-pass kernel's plain time
+  (i) the external-potential path: four fields (MWPotential22,
+      McMillan17_streams, the MW+LMC evolving field, the FIRE-like BFE)
+      on the card in float32 against float64 on the CPU at 65,536 points
+      (MW+LMC at three times, one a table node), each force under
+      torch.cuda.set_sync_debug_mode('error'); their ms and launches per
+      force evaluation; run_simulation of the bench case's Plummer on an
+      orbit in McMillan17_streams (300 steps, |dE/E| < 1e-4 with the
+      field's energy) and in the MW+LMC field from t = -1 (100 steps, the
+      centre of mass on the fp64 orbit of one point); the KDK ms/step with
+      and without the MW+LMC field; and fit_cylspline_from_particles
+      through the two-set potential kernel (vs its plain version, 2e-6)
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card, and
-the one before that a JSON object of the kernels: launches in phase (d)
-for the force kernels and in phase (g)'s measurement path for the
-roofline kernels, max error and times from (b)/(g), each kernel's bound
+the one before that a JSON object of the kernels: launches in phases (d)
+and (i) for the force kernels (by phase under ``launches_by_path``) and in
+phase (g)'s measurement path for the roofline kernels, max error and times from (b)/(g), each kernel's bound
 (the larger of its operations over the card's peak and its bytes over
 the memory rate) and, for the force kernels, S.
 Exits nonzero, and prints no result, without a CUDA device.
 """
 import argparse
+import copy
 import json
 import shutil
 import subprocess
@@ -77,6 +89,26 @@ PEAK_BYTES = 3.35e12
 # Spline: the same 19, the pair min of 1/h, and 23 in force_pre<SPLINE>
 # (r, newton, h^-3, q, q^2, 5 inner, 9 outer, 2 compares, 2 selects)
 PAIR_FLOPS = {"newtonian": 19, "spline": 43}
+# Plummer potential: 3 subtracts, 6 for r^2 + eps2, the pair max of h^2,
+# the add of h^2, 1 rsqrt, the multiply by G m and the add into the sum
+POT_FLOPS = {"plummer": 14}
+# the satellite's orbit in the static field (examples/stream_nbody.py) and
+# its Sgr-like present-day phase in the MW+LMC field
+# (examples/mw_lmc_stream.py), started at t = -1 (a table node)
+ORBIT_MW = np.array([14.0, 0.0, 6.0, 30.0, 150.0, -10.0])
+ORBIT_LMC = np.array([17.5, 2.5, -6.5, 237.9, -24.3, 209.0])
+# card float32 vs CPU float64, max |err| / max |fp64| over the 65,536
+# points of benchmarks.fields.field_points: force, potential.  Four times the JAX package's
+# own float32-vs-float64 error at the first 2,048 of the same points
+# (tests/test_torch_fields.py::test_field_fp32_error_within_chip_tolerance
+# measures it, pins each limit to 4-5 times it, and holds the port's CPU
+# float32 to the same limits).  The JAX package's float32 CylSpline loses
+# ~1e-4 of the FIRE BFE's force near its centre to cancellation in its
+# Hermite sums; the port's corner-relative sums lose less
+FIELD_TOL = {"MWPotential22": (3.9e-6, 7.8e-7),
+             "McMillan17_streams": (3.0e-6, 9.5e-7),
+             "MW+LMC": (2.9e-6, 1.2e-6),
+             "FIRE BFE": (4.8e-4, 5.5e-6)}
 
 
 def log(msg):
@@ -592,6 +624,248 @@ def phase_h(dev, base):
     log(f"(h) wall {time.perf_counter() - t0:.1f} s")
 
 
+def kdk_ms(dev, pot=None, orbit=None, t0=0.0, steps=2):
+    """Best ms/step of 2 windows of 20 KDK steps of the bench case
+    (``bench.measure``) with ``pot`` (or none) as the external field; then
+    the card's device ms a step from ``steps`` more steps under
+    torch.profiler, split into the two-pass kernels (with their combines)
+    and the rest (the field and the sorted path's host side)."""
+    from nbody_streams_tpu_torch import bench
+
+    r = bench.measure(dev, windows=2, steps=20, external_potential=pot,
+                      orbit=orbit, t0=t0, profile_steps=steps)
+    device, seen = {"gravity": 0.0, "rest": 0.0}, 0
+    for e in r["profile"].events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            seen += "direct_tile" in e.name or "band_kernel" in e.name
+            key = ("gravity" if any(k in e.name for k in (
+                "direct_tile", "band_kernel", "combine_kernel")) else "rest")
+            device[key] += e.device_time / (steps * 1e3)
+    # every step runs the base and the band pass once; the profiler can
+    # drop a window's kernel records: then the device split is not measured
+    return r["ms_per_step"], (device if seen == 2 * steps else None)
+
+
+def phase_i(dev, bench_ms):
+    """The external-potential path on the card."""
+    import nbody_streams_tpu_torch as nst
+    from nbody_streams_tpu_torch.benchmarks.fields import (
+        T_LMC, field_builders, field_points, profile_call)
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+    from nbody_streams_tpu_torch.potentials import fit
+
+    t_phase = time.perf_counter()
+    builders = field_builders()
+    fields, stats = {}, {}
+    x32 = field_points(N_BENCH)
+    xg = torch.tensor(x32, device=dev)
+    xc = torch.tensor(x32.astype(np.float64))
+    for name, (build, times) in builders.items():
+        t0 = time.perf_counter()
+        pot64 = build()
+        build_s = time.perf_counter() - t0
+        gpu = copy.deepcopy(pot64).to(dev, torch.float32)
+        fields[name] = (pot64, gpu)
+        tol_f, tol_p = FIELD_TOL[name]
+        worst = (0.0, 0.0)
+        for t in times:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                f = gpu.force(xg, t)
+                phi = gpu.potential(xg, t)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check(f.is_cuda and f.dtype == torch.float32
+                  and f.shape == (N_BENCH, 3), f"{name}: force {f.dtype}")
+            check(torch.isfinite(f).all().item()
+                  and torch.isfinite(phi).all().item(),
+                  f"{name}: not finite at t={t}")
+            ef, _ = rel_err(f.cpu(), pot64.force(xc, t))
+            ep, _ = rel_err(phi.cpu(), pot64.potential(xc, t))
+            log(f"(i) {name} t={t}: float32 card vs float64 CPU at "
+                f"{N_BENCH} points: force {ef:.3e} (tol {tol_f:g}), "
+                f"potential {ep:.3e} (tol {tol_p:g}); no host sync in "
+                "force")
+            check(ef < tol_f and ep < tol_p,
+                  f"{name} t={t}: {ef:.3e} / {ep:.3e} over tolerance")
+            worst = (max(worst[0], ef), max(worst[1], ep))
+        t = times[0]
+        rec = profile_call(lambda: gpu.force(xg, t), 5)
+        ms_pot = cuda_ms(lambda: gpu.potential(xg, t), 5)
+        stats[name] = dict(**rec, ms_potential=ms_pot, build_s=build_s,
+                           err=worst)
+        log(f"(i) {name}: built in {build_s:.2f} s; force "
+            f"{rec['wall_median_ms']:.4f} ms (median of 5; least "
+            f"{rec['wall_min_ms']:.4f}), potential {ms_pot:.4f} ms at "
+            f"N={N_BENCH}; per force {rec['launches']} CUDA kernel "
+            f"launches, {rec['device_ms']:.4f} ms of device time, busy "
+            f"share {rec['busy_share']:.3f} (torch.profiler)")
+
+    # TF32 cannot enter: CylSpline's bicubic contraction is elementwise
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        pot64, gpu = fields["FIRE BFE"]
+        ef, _ = rel_err(gpu.force(xg, 0.0).cpu(), pot64.force(xc, 0.0))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(ef < FIELD_TOL["FIRE BFE"][0], f"FIRE BFE with TF32 on: {ef:.3e}")
+    log(f"(i) FIRE BFE with allow_tf32=True: force {ef:.3e} (tol "
+        f"{FIELD_TOL['FIRE BFE'][0]:g})")
+
+    # a loader's default is the card: numpy positions are evaluated there
+    pot = nst.potentials.load_mw_lmc_potential()[0]
+    check(all(b.is_cuda for b in pot.buffers())
+          and pot.force(x32[:8], T_LMC).is_cuda,
+          "load_mw_lmc_potential() did not build on the card")
+    log("(i) load_mw_lmc_potential() built on the card; numpy positions "
+        "evaluated there")
+
+    xv, m = plummer_case(N_BENCH, 2)
+    species = [nst.Species.dark(N=N_BENCH, mass=float(m[0]), softening=H)]
+    solver = nst.DirectGravity(m, np.full(N_BENCH, H), device=dev)
+    launches = {}
+
+    def run(xv0, pot, t0, steps, out_dir, path):
+        for key in cd.LAUNCHES:
+            cd.LAUNCHES[key] = 0
+        for key in cd.BRANCHES:
+            cd.BRANCHES[key] = 0
+        t = time.perf_counter()
+        res = nst.run_simulation(
+            xv0, species, t0, t0 + steps * DT, DT, architecture="gpu",
+            method="direct", external_potential=pot, output_dir=out_dir,
+            save_snapshots=False, verbose=False)["dark"]
+        wall = time.perf_counter() - t
+        launches[path] = dict(cd.LAUNCHES)
+        check(cd.LAUNCHES["direct"] == steps + 1
+              and cd.LAUNCHES["band"] == steps + 1
+              and cd.BRANCHES["single_pass"] == 0,
+              f"{path}: not every force call ran both two-pass kernels: "
+              f"{cd.LAUNCHES}, {cd.BRANCHES}")
+        check(res.shape == (N_BENCH, 6) and np.isfinite(res).all(),
+              f"{path}: final state")
+        return res, wall
+
+    def energy(xv_, pot64, t):
+        pos = torch.tensor(xv_[:, :3], dtype=torch.float32, device=dev)
+        self_phi = solver.potential(pos).double().cpu().numpy()
+        ext = pot64.potential(torch.tensor(xv_[:, :3]), t).numpy()
+        return (0.5 * (m * (xv_[:, 3:] ** 2).sum(1)).sum()
+                + 0.5 * (m * self_phi).sum() + (m * ext).sum())
+
+    # static field: energy with the field's term
+    pot64 = fields["McMillan17_streams"][0]
+    xv0 = xv + ORBIT_MW
+    steps = 300
+    with tempfile.TemporaryDirectory() as out_dir:
+        res, wall = run(xv0, pot64, 0.0, steps, out_dir, "mcmillan17")
+    e0, e1 = energy(xv0, pot64, 0.0), energy(res, pot64, steps * DT)
+    de = abs((e1 - e0) / e0)
+    log(f"(i) run_simulation in McMillan17_streams: {steps} steps in "
+        f"{wall:.2f} s, |dE/E| = {de:.3e} (limit 1e-4, E with the field's "
+        f"energy), launches {launches['mcmillan17']}")
+    check(de < 1e-4, f"McMillan17 |dE/E| = {de:.3e} >= 1e-4")
+
+    # time-dependent field: the centre of mass on the fp64 orbit of a point
+    pot64 = fields["MW+LMC"][0]
+    xv0 = xv + ORBIT_LMC
+    steps = 100
+    with tempfile.TemporaryDirectory() as out_dir:
+        res, wall = run(xv0, pot64, T_LMC, steps, out_dir, "mw_lmc")
+    point = torch.tensor(xv0.mean(0)[None, :])
+    acc = pot64.force(point[:, :3], T_LMC)
+    for k in range(steps):
+        point[:, 3:] += 0.5 * DT * acc
+        point[:, :3] += DT * point[:, 3:]
+        acc = pot64.force(point[:, :3], T_LMC + (k + 1) * DT)
+        point[:, 3:] += 0.5 * DT * acc
+    point = point[0].numpy()
+    dx = np.abs(res[:, :3].mean(0) - point[:3]).max()
+    dv = np.abs(res[:, 3:].mean(0) - point[3:]).max()
+    log(f"(i) run_simulation in MW+LMC from t={T_LMC}: {steps} steps in "
+        f"{wall:.2f} s; centre of mass vs the fp64 point orbit: "
+        f"{dx:.3e} kpc (tol 1e-3), {dv:.3e} km/s; moved "
+        f"{np.abs(point[:3] - xv0[:, :3].mean(0)).max():.4f} kpc; "
+        f"launches {launches['mw_lmc']}")
+    check(dx < 1e-3, f"MW+LMC centre of mass {dx:.3e} kpc off its orbit")
+
+    # the KDK step with and without the field (the bench case's loop)
+    plain_ms, plain_dev = kdk_ms(dev)
+    field_ms, field_dev = kdk_ms(dev, fields["MW+LMC"][1], ORBIT_LMC, T_LMC)
+    share = (field_ms - plain_ms) / field_ms
+
+    def split(device, ms):
+        if device is None:
+            return "not measured (the profiler lost kernel records)"
+        return (f"two-pass kernels {device['gravity']:.3f}, the rest "
+                f"{device['rest']:.3f}, the card busy "
+                f"{sum(device.values()) / ms:.3f} of the step")
+
+    log(f"(i) KDK step at N={N_BENCH}: {plain_ms:.3f} ms/step without a "
+        f"field, {field_ms:.3f} ms/step in the MW+LMC field (phase f's "
+        f"bench case: {bench_ms:.3f}); the field's share of the step "
+        f"{share:.3f} (its force alone "
+        f"{stats['MW+LMC']['wall_median_ms']:.3f} ms); device ms a step "
+        f"without the field: {split(plain_dev, plain_ms)}; in the field: "
+        f"{split(field_dev, field_ms)}")
+    stats["kdk"] = dict(plain_ms=plain_ms, field_ms=field_ms, share=share,
+                        plain_device=plain_dev, field_device=field_dev)
+
+    # the fit's kernel: the two-set potential kernel on the probe grid
+    pos = res[:, :3] - res[:, :3].mean(0)
+    for key in cd.LAUNCHES:
+        cd.LAUNCHES[key] = 0
+    t = time.perf_counter()
+    coefs = fit.fit_cylspline_from_particles(pos, m, softening=H,
+                                             device=dev)
+    fit_s = time.perf_counter() - t
+    fit_launches = cd.LAUNCHES["direct"]
+    check(fit_launches > 0, "the fit launched no kernel")
+    fitted = nst.potentials.CylSplinePotential(coefs)
+    check(np.isfinite(fitted.potential(np.array([[1.0, 0.5, 0.2]]))).all(),
+          "fitted CylSpline not finite")
+    _, _, _, probes = fit.cylspline_grid(pos)
+    kind = "plummer"
+    pre_t = cd._soft_pre(kind, torch.zeros(len(probes), device=dev))
+    tgt = cd._targets(torch.tensor(probes, dtype=torch.float32, device=dev),
+                      pre_t)
+    src = cd._sources(
+        torch.tensor(pos, dtype=torch.float32, device=dev),
+        torch.tensor(m * 4.300917270069976e-06, dtype=torch.float32,
+                     device=dev),
+        cd._soft_pre(kind, torch.full((N_BENCH,), H, device=dev)), cd.TN)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = cd.split_count("direct", tgt.shape[1], src.shape[1], sms)
+
+    def kernel():
+        return cd._direct_tile(tgt, src, kind, "pot", True, 1e-15)
+
+    def plain():
+        return cd._direct_tile_reference(tgt, src, kind, "pot", True, 1e-15,
+                                         splits=splits)
+
+    got, want = kernel(), plain()
+    rel, absolute = rel_err(got, want)
+    check(rel < 2e-6, f"fit kernel vs plain: {rel:.2e} >= 2e-6")
+    ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 1)
+    pairs = tgt.shape[1] * N_BENCH
+    bound_ms, bound_by = bound(pairs * POT_FLOPS[kind],
+                               nbytes(tgt, src, got))
+    stats["fit"] = dict(max_abs_err=absolute, rel=rel, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, splits=splits, s=fit_s,
+                        launches=fit_launches)
+    log(f"(i) fit_cylspline_from_particles: {fit_s:.2f} s, "
+        f"{tgt.shape[1]} probes x {N_BENCH} sources, {fit_launches} "
+        f"launch(es) of the two-set kernel; two-set potential kernel ({kind}, Kahan, "
+        f"S={splits}) vs plain: rel err {rel:.2e} (tol 2e-6), {ms:.3f} ms "
+        f"vs plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{POT_FLOPS[kind]} FP32 ops a pair), {bound_ms / ms:.4f} of bound")
+    log(f"(i) wall {time.perf_counter() - t_phase:.1f} s")
+    return stats, launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log-dir", help="copy the nvcc build log here")
@@ -610,20 +884,35 @@ def main():
     phase_c(dev)
     launches = phase_d(dev)
     phase_e(dev)
-    phase_f(dev, smi, name)
+    bench = phase_f(dev, smi, name)
     roof_stats, roof_launches = phase_g(dev, stats)
     phase_h(dev, stats)
+    ext_stats, ext_launches = phase_i(dev, bench["ms_per_step"])
     replaces = {"direct": "nbody_streams_tpu/ops/pallas_direct.py:301",
                 "band": "nbody_streams_tpu/ops/pallas_direct.py:494"}
     # no single PyTorch call computes a softened all-pairs sum or an
     # fma / rsqrt chain: library_ms is null for every kernel
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    # the run paths only: the fit's launch has a row of its own below
+    paths = {"bench": launches, **ext_launches}
     kernels = [{"name": f"{key}_{'tile_' if key == 'direct' else ''}kernel",
                 "route": "cuda", "source": SOURCE,
-                "replaces": replaces[key], "launches": launches[key],
+                "replaces": replaces[key],
+                "launches": sum(p[key] for p in paths.values()),
+                "launches_by_path": {k: p[key] for k, p in paths.items()},
                 **{k: stats[key][k] for k in keys}, "library_ms": None,
                 "splits": stats[key]["splits"]}
                for key in ("direct", "band")]
+    # the two-set potential form of the single-pass kernel (the fit's
+    # launch site), timed at the fit's shape
+    kernels.append({
+        "name": "direct_tile_kernel<PLUMMER,POT,Kahan> (two-set, fit)",
+        "route": "cuda", "source": SOURCE,
+        "replaces": "nbody_streams_tpu/ops/pallas_direct.py:790 (via "
+                    "potentials/fit.py:296)",
+        "launches": ext_stats["fit"]["launches"],
+        **{k: ext_stats["fit"][k] for k in keys}, "library_ms": None,
+        "splits": ext_stats["fit"]["splits"]})
     replaces = {
         "fma_chain": "nbody_streams_tpu/ops/probe.py:62, bench.py:95, "
                      "benchmarks/tile_sweep.py:111",

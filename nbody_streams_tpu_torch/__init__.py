@@ -5,7 +5,9 @@ hand-written CUDA kernels for NVIDIA Hopper GPUs.  It keeps the JAX
 package's module names and public surface, and imports neither jax nor the
 JAX package.  It covers the direct-summation KDK path,
 ``run_simulation(method='direct')`` down to the all-pairs kernels in
-``csrc/direct.cu``, and the measurement path (``bench``, ``bench_suite``,
+``csrc/direct.cu``, external potentials (``potentials``: analytic,
+Multipole, CylSpline, modifiers, GalPot, MW+LMC, fits), and the
+measurement path (``bench``, ``bench_suite``,
 ``benchmarks.tile_sweep``) with the roofline kernels in
 ``csrc/roofline.cu``; the kernels are built with nvcc at first use.
 """
@@ -21,6 +23,7 @@ from .ic import make_plummer_sphere, place_on_orbit
 from .run import run_nbody
 from .sim import run_simulation
 from .nbody_io import ParticleReader
+from . import potentials
 
 __all__ = [
     "__version__",
@@ -32,6 +35,7 @@ __all__ = [
     "run_simulation",
     "run_nbody",
     "ParticleReader",
+    "potentials",
     "make_plummer_sphere",
     "place_on_orbit",
     "DirectGravity",

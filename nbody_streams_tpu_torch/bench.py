@@ -59,13 +59,21 @@ def _capacity_probe(K=256, ITERS=200, device="cuda"):
 
 
 def measure(device="cuda", windows=WINDOWS, steps=STEPS,
-            precision="float32_kahan", n=N):
+            precision="float32_kahan", n=N, external_potential=None,
+            orbit=None, t0=0.0, profile_steps=0):
     """Time the bench case (at ``n`` particles and ``precision``; the
     bench's own by default): ``WARMUP`` steps, then the best of
     ``windows`` windows of ``steps`` KDK steps (host clock around work
     ending in a device synchronise).  Returns a dict with ``ms_per_step``,
     ``gint_per_s``, ``windows_ms`` and ``de`` (|dE/E| from
-    ``system_energy`` before and after the windows)."""
+    ``system_energy`` before and after the windows).
+
+    ``external_potential`` (a field on ``device``) adds its force to every
+    step, with the Plummer sphere moved by ``orbit`` (a (6,) phase-space
+    offset) and the clock started at ``t0``; ``system_energy`` leaves the
+    field out, so ``de`` is then None.  ``profile_steps`` > 0 runs that
+    many more steps under ``torch.profiler`` (CUDA activity), returned as
+    ``profile``."""
     from . import make_plummer_sphere
     from .integrate import (
         init_state,
@@ -81,13 +89,15 @@ def measure(device="cuda", windows=WINDOWS, steps=STEPS,
         raise RuntimeError(f"the bench measures a CUDA device; got {device} "
                            f"(CUDA available: {torch.cuda.is_available()})")
     xv, m = make_plummer_sphere(n, M_total=1e9, a=1.0, seed=2)
+    if orbit is not None:
+        xv = xv + np.asarray(orbit, float)
     solver = DirectGravity(m, np.full(n, H), kernel="spline",
                            precision=precision, impl="cuda", device=device)
-    accel_fn = make_accel_fn(solver, solver.mass)
-    step_fn = make_kdk_step(accel_fn, DT, 0.0)
+    accel_fn = make_accel_fn(solver, solver.mass, external_potential)
+    step_fn = make_kdk_step(accel_fn, DT, t0)
     presort = solver.spatial_sort_active
     every = solver.presort_interval   # run_nbody's order-refresh policy
-    state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, 0.0,
+    state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, t0,
                        sort_fn=solver.sort_key if presort else None,
                        device=device)
     state = run_chunk(step_fn, state, WARMUP, presort=presort,
@@ -97,26 +107,37 @@ def measure(device="cuda", windows=WINDOWS, steps=STEPS,
         ke, pe = system_energy(s, solver, solver.mass)
         return float(ke) + float(pe)
 
-    e0 = energy(state)
+    e0 = energy(state) if external_potential is None else None
     times = []
     for _ in range(windows):
         torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
+        start = time.perf_counter()
         state = run_chunk(step_fn, state, steps, presort=presort,
                           presort_every=every)
         torch.cuda.synchronize(device)
-        times.append((time.perf_counter() - t0) / steps)
+        times.append((time.perf_counter() - start) / steps)
     if not torch.isfinite(state.pos).all():
         raise RuntimeError("bench state is not finite after the windows")
-    de = abs((energy(state) - e0) / e0)
-    if not (np.isfinite(de) and de < DE_LIMIT):
-        raise RuntimeError(f"|dE/E| = {de:.3e} over {windows * steps} "
-                           f"steps (limit {DE_LIMIT})")
+    de = None
+    if e0 is not None:
+        de = abs((energy(state) - e0) / e0)
+        if not (np.isfinite(de) and de < DE_LIMIT):
+            raise RuntimeError(f"|dE/E| = {de:.3e} over {windows * steps} "
+                               f"steps (limit {DE_LIMIT})")
     best = min(times)
-    return {"n": n, "ms_per_step": best * 1e3,
-            "windows_ms": [t * 1e3 for t in times],
-            "gint_per_s": n * n / best / 1e9, "de": de,
-            "steps": windows * steps}
+    out = {"n": n, "ms_per_step": best * 1e3,
+           "windows_ms": [t * 1e3 for t in times],
+           "gint_per_s": n * n / best / 1e9, "de": de,
+           "steps": windows * steps}
+    if profile_steps:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = run_chunk(step_fn, state, profile_steps,
+                              presort=presort, presort_every=every)
+            torch.cuda.synchronize(device)
+        out["profile"] = prof
+    return out
 
 
 def main():

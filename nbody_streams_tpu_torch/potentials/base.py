@@ -1,0 +1,247 @@
+"""Potential base class: autograd-derived forces, Agama-compatible surface.
+
+Counterpart of ``nbody_streams_tpu/potentials/base.py``.  Each potential
+is an ``nn.Module`` whose tables are registered buffers, so
+``.to(device, dtype)`` moves a whole field (composites and modifiers
+included) and ``load_state_dict`` carries the JAX package's arrays across.
+A subclass defines one *batched* scalar field ``_phi(arr (N, 3), t) ->
+(N,)``; torch autograd supplies forces, Hessians and densities (Laplacian /
+4 pi G), consistent with each other by construction.  Evaluations are
+independent per point, so the gradient of ``phi.sum()`` is each point's
+gradient exactly.
+
+Like every ``nn.Module``, a class builds its tables on the CPU; the
+loaders (``make_potential``, ``load_potential_ini``, ``load_potential``,
+``load_mw_lmc_potential``, ...) and the ``*GPU`` names take ``device=``
+and build on the card unless the caller asks for the CPU.  Positions that
+are not tensors go to the potential's device.
+
+Evaluation runs in the dtype of the positions: tables are cast to it where
+they differ.  A Python-number ``t`` (the integrator's) stays on the host;
+nothing in ``force`` reads a device value back, so a step never waits on
+the card.
+
+Public surface (Agama conventions, as the JAX package):
+
+* ``potential(xyz, t)``  -> Phi, (km/s)^2
+* ``force(xyz, t)``      -> -grad Phi, (km/s)^2/kpc
+* ``density(xyz, t)``    -> Laplacian Phi / (4 pi G), Msun/kpc^3
+* ``forceDeriv(xyz, t)`` -> (force, -hess6) with hess6 = [xx,yy,zz,xy,yz,xz]
+* ``evalDeriv``, ``eval(xyz, pot=, acc=, der=)``; ``eval()`` with no
+  positions is ``nn.Module.eval``
+* ``+`` composition -> CompositePotential
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..constants import G_DEFAULT
+
+__all__ = ["Potential", "CompositePotential", "resolve_device"]
+
+FOUR_PI_G = 4.0 * math.pi * G_DEFAULT
+
+
+def resolve_device(device) -> torch.device:
+    """The device a loader builds its field on: ``'cuda'`` (every loader's
+    default) raises without a card, so the CPU is used only when the
+    caller asks for it with ``device='cpu'``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} but torch sees no CUDA "
+                           "device; pass device='cpu' to build on the CPU")
+    return device
+
+
+def _hess6(rows):
+    """Hessian rows (3 x (N, 3)) -> (N, 6) [xx, yy, zz, xy, yz, xz]."""
+    return torch.stack([rows[0][:, 0], rows[1][:, 1], rows[2][:, 2],
+                        rows[0][:, 1], rows[1][:, 2], rows[0][:, 2]], 1)
+
+
+class Potential(nn.Module):
+    """Base class; subclasses implement ``_phi(arr (N, 3), t) -> (N,)``."""
+
+    #: Subclasses flip this when Phi genuinely depends on t (modifiers do).
+    time_dependent: bool = False
+
+    def __init__(self):
+        super().__init__()
+        # ``.to()`` moves this empty buffer too, so a field without tables
+        # (the analytic ones) still knows where it was put
+        self.register_buffer("_where", torch.empty(0), persistent=False)
+
+    # -- to implement -------------------------------------------------------
+    def _phi(self, arr, t):
+        raise NotImplementedError
+
+    # -- helpers ------------------------------------------------------------
+    def _device(self):
+        return self._where.device
+
+    @staticmethod
+    def _like(table, arr):
+        """``table`` in the dtype of the positions."""
+        return table if table.dtype == arr.dtype else table.to(arr.dtype)
+
+    def _prep(self, xyz):
+        """Coerce any (..., 3) input to a flat (N, 3) batch.
+
+        Returns (arr (N, 3), lead) where ``lead`` is the original leading
+        shape (``None`` for a single (3,) point) — ``_out`` restores it.
+        Tensors keep their device; other input goes to the potential's.
+        Integer/bool input is promoted to torch's default float."""
+        if isinstance(xyz, torch.Tensor):
+            arr = xyz.detach()
+        else:
+            arr = torch.as_tensor(np.asarray(xyz), device=self._device())
+        if arr.ndim == 0 or arr.shape[-1] != 3:
+            raise ValueError(f"positions must be (..., 3), got "
+                             f"{tuple(arr.shape)}")
+        if not arr.is_floating_point():
+            arr = arr.to(torch.get_default_dtype())
+        if arr.ndim == 1:
+            return arr[None, :], None
+        lead = tuple(arr.shape[:-1])
+        return arr.reshape(-1, 3), lead
+
+    @staticmethod
+    def _out(val, lead):
+        if lead is None:
+            return val[0]
+        return val.reshape(lead + tuple(val.shape[1:]))
+
+    # -- derived, batched ---------------------------------------------------
+    def _force_v(self, arr, t):
+        with torch.enable_grad():
+            x = arr.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self._phi(x, t).sum(), x)
+        return -g
+
+    def _hess_v(self, arr, t):
+        with torch.enable_grad():
+            x = arr.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self._phi(x, t).sum(), x,
+                                       create_graph=True)
+            rows = []
+            for k in range(3):
+                gk = g[:, k].sum()
+                h = (torch.autograd.grad(gk, x, retain_graph=True,
+                                         allow_unused=True)[0]
+                     if gk.requires_grad else None)
+                rows.append(torch.zeros_like(x) if h is None else h)
+        return _hess6([r.detach() for r in rows])
+
+    def _phi_force_v(self, arr, t):
+        """(phi, force) sharing ONE forward pass."""
+        with torch.enable_grad():
+            x = arr.detach().requires_grad_(True)
+            phi = self._phi(x, t)
+            (g,) = torch.autograd.grad(phi.sum(), x)
+        return phi.detach(), -g
+
+    # -- public (Agama-compatible) -----------------------------------------
+    def potential(self, xyz, t=0.0):
+        arr, lead = self._prep(xyz)
+        with torch.no_grad():
+            return self._out(self._phi(arr, t), lead)
+
+    def force(self, xyz, t=0.0):
+        arr, lead = self._prep(xyz)
+        return self._out(self._force_v(arr, t), lead)
+
+    def density(self, xyz, t=0.0):
+        arr, lead = self._prep(xyz)
+        h6 = self._hess_v(arr, t)
+        rho = (h6[:, 0] + h6[:, 1] + h6[:, 2]) / FOUR_PI_G
+        return self._out(rho, lead)
+
+    def forceDeriv(self, xyz, t=0.0):
+        arr, lead = self._prep(xyz)
+        f = self._force_v(arr, t)
+        d = -self._hess_v(arr, t)
+        return self._out(f, lead), self._out(d, lead)
+
+    def evalDeriv(self, xyz, t=0.0):
+        arr, lead = self._prep(xyz)
+        phi, f = self._phi_force_v(arr, t)
+        d = -self._hess_v(arr, t)
+        return self._out(phi, lead), self._out(f, lead), self._out(d, lead)
+
+    def eval(self, xyz=None, pot: bool = False, acc: bool = False,
+             der: bool = False, t=0.0):
+        """Agama's ``eval(xyz, pot=, acc=, der=)``; with no positions,
+        ``nn.Module.eval()`` (evaluation mode, returns the module)."""
+        if xyz is None:
+            if pot or acc or der:
+                raise ValueError("eval(): positions are required with "
+                                 "pot/acc/der")
+            return super().eval()
+        if not (pot or acc or der):
+            raise ValueError("eval(): request at least one of pot/acc/der")
+        arr, lead = self._prep(xyz)
+        results = []
+        if pot and acc:
+            phi, f = self._phi_force_v(arr, t)
+            results += [self._out(phi, lead), self._out(f, lead)]
+        elif pot:
+            with torch.no_grad():
+                results.append(self._out(self._phi(arr, t), lead))
+        elif acc:
+            results.append(self._out(self._force_v(arr, t), lead))
+        if der:
+            results.append(self._out(-self._hess_v(arr, t), lead))
+        return results[0] if len(results) == 1 else tuple(results)
+
+    # -- composition --------------------------------------------------------
+    def __add__(self, other):
+        if not isinstance(other, Potential):
+            return NotImplemented
+        parts = []
+        for p in (self, other):
+            parts.extend(p.components if isinstance(p, CompositePotential)
+                         else [p])
+        return CompositePotential(parts)
+
+    def __radd__(self, other):
+        if isinstance(other, (int, float)) and other == 0:  # sum()
+            return self
+        return self.__add__(other)
+
+
+class CompositePotential(Potential):
+    """Sum of member potentials (members in an ``nn.ModuleList``)."""
+
+    def __init__(self, components):
+        super().__init__()
+        components = list(components)
+        if not components:
+            raise ValueError("CompositePotential needs >= 1 component")
+        self.components = nn.ModuleList(components)
+        self.time_dependent = any(c.time_dependent for c in components)
+
+    def _phi(self, arr, t):
+        return sum(c._phi(arr, t) for c in self.components)
+
+    # Sum member implementations directly (lets members keep their own
+    # fast paths instead of differentiating through the sum).
+
+    def _force_v(self, arr, t):
+        return sum(c._force_v(arr, t) for c in self.components)
+
+    def _hess_v(self, arr, t):
+        return sum(c._hess_v(arr, t) for c in self.components)
+
+    def _phi_force_v(self, arr, t):
+        parts = [c._phi_force_v(arr, t) for c in self.components]
+        return (sum(p for p, _ in parts), sum(f for _, f in parts))
+
+    def __len__(self):
+        return len(self.components)
+
+    def __getitem__(self, i):
+        return self.components[i]

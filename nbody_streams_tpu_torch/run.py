@@ -9,6 +9,7 @@ so a run started by either package resumes in the other.
 from __future__ import annotations
 
 import contextlib
+import copy
 import time as pytime
 import warnings
 from pathlib import Path
@@ -95,17 +96,15 @@ class _ChunkWatchdog:
 
 
 def _resolve_device(architecture: str) -> torch.device:
-    """'gpu' -> the CUDA device (raises without one); 'cpu'; 'auto' -> CUDA
-    when available, else the CPU."""
-    if architecture in ("auto", None):
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """'gpu' and 'auto' -> the CUDA device (each raises without one: the
+    CPU runs only when asked for); 'cpu'."""
     if architecture == "cpu":
         return torch.device("cpu")
-    if architecture == "gpu":
+    if architecture in ("gpu", "auto", None):
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "architecture='gpu' but torch sees no CUDA device; use "
-                "architecture='cpu'")
+                f"architecture={architecture!r} but torch sees no CUDA "
+                "device; pass architecture='cpu' to run on the CPU")
         return torch.device("cuda")
     if architecture == "tpu":
         raise ValueError("architecture='tpu' is the JAX package's "
@@ -170,16 +169,24 @@ def run_nbody(
       accumulation *and* compensated state updates) | 'float64' (the
       oracle impl) | 'float32_fast' (runs as 'float32', with a warning).
     * ``impl``: 'auto' | 'cuda' (hand-written kernels) | 'torch' (oracle).
-    * ``architecture``: 'gpu' (raises without a CUDA device) | 'cpu' |
-      'auto'.
-    * ``external_potential`` (``force(pos, t)``) and ``force_extra`` (a
-      :class:`ForceExtra`, or a plain ``fn(pos, vel, masses, t)`` on
-      numpy arrays) are duck-typed hooks.
+    * ``architecture``: 'gpu' or 'auto' (the CUDA device; each raises
+      without one) | 'cpu'.
+    * ``external_potential``: any object with ``force(pos, t)``, called
+      with the (N, 3) state tensor and the step's time as a Python float.
+      A torch module (every ``potentials`` class) runs as a copy moved to
+      the run's device and state dtype; the caller's object is left as it
+      is.  ``force_extra`` (a :class:`ForceExtra`, or a plain
+      ``fn(pos, vel, masses, t)`` on numpy arrays) is duck-typed too.
     * ``devices`` with more than one device, and ``profile_dir``, are not
       ported yet and raise ``NotImplementedError``.
     """
     validate_kernel(kernel)
     validate_precision(precision)
+    if external_potential is not None and not callable(
+            getattr(external_potential, "force", None)):
+        raise TypeError(
+            "external_potential must have a force(pos, t) method; got "
+            f"{type(external_potential).__name__}")
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
             "multi-device runs are not ported yet (ROADMAP.md Queue 1 "
@@ -281,6 +288,10 @@ def run_nbody(
         # uniform; masses[0] alone would mislabel unequal-mass runs
         snap_kwargs["mass_dark"] = np.asarray(masses, float)
         snap_kwargs["eps_dark"] = np.asarray(soft_arr, float)
+
+    if isinstance(external_potential, torch.nn.Module):
+        external_potential = copy.deepcopy(external_potential).to(
+            device=device, dtype=state_dtype)
 
     solver = DirectGravity(
         masses, soft_arr, G=G, kernel=kernel, precision=precision,

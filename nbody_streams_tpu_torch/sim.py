@@ -1,8 +1,9 @@
 """Unified multi-species simulation entry point.
 
 Counterpart of ``nbody_streams_tpu/sim.py`` for ``method='direct'``: species
-validation and assembly, kwarg routing, then ``run_nbody``.  The other
-methods and the external-field terms are not ported yet and raise
+validation and assembly, kwarg routing, then ``run_nbody`` (with an
+``external_potential``, e.g. from ``nbody_streams_tpu_torch.potentials``).
+The other methods and dynamical friction are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -59,8 +60,8 @@ def run_simulation(
     """Run a multi-species N-body simulation; returns {name: (N_k, 6)}.
 
     The surface of ``nbody_streams_tpu.run_simulation``; here
-    ``architecture`` is 'gpu' (a CUDA device; raises without one), 'cpu' or
-    'auto', and ``method`` is 'direct'.
+    ``architecture`` is 'gpu' or 'auto' (a CUDA device; each raises without
+    one) or 'cpu', and ``method`` is 'direct'.
     """
     phase_space = np.asarray(phase_space, np.float64)
     if phase_space.ndim != 2 or phase_space.shape[1] != 6:
@@ -75,10 +76,6 @@ def run_simulation(
     if method != "direct":
         raise ValueError(
             f"method must be 'direct', 'tree' or 'scf', got {method!r}")
-    if external_potential is not None:
-        raise NotImplementedError(
-            "external potentials are not ported yet (ROADMAP.md Queue 1 "
-            "item 5)")
     if dynamical_friction:
         raise NotImplementedError(
             "dynamical friction is not ported yet (ROADMAP.md Queue 1 "
@@ -118,6 +115,7 @@ def run_simulation(
         debug_energy=debug_energy,
         species=species,
         architecture=architecture,
+        external_potential=external_potential,
         **direct_kwargs,
     )
     return _split_by_species(xv_final, species)

@@ -128,12 +128,10 @@ def _emit_performance_warnings(n_total: int, architecture: str,
     Thresholds follow the reference (species.py:177-210).
     """
     if architecture in ("auto", None):
-        # resolve to the device run_nbody will actually pick — the
-        # branches below compare literal strings, so an unresolved
-        # 'auto' would silently skip every per-backend threshold
-        import torch
-
-        architecture = "gpu" if torch.cuda.is_available() else "cpu"
+        # 'auto' is the card, as run_nbody resolves it (it raises there
+        # without one); an unresolved 'auto' would skip every
+        # per-backend threshold below
+        architecture = "gpu"
     if n_total > 2_000_000 and method not in ("tree", "scf"):
         warnings.warn(
             f"{n_total:,} particles: direct summation at this scale will be "

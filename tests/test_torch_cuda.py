@@ -14,8 +14,14 @@ The roofline chains: 1e-5 (the kernel contracts acc * v + v into one
 FFMA, torch rounds twice; rsqrt within 2 ulp on both sides; the
 recurrences contract, so the differences do not grow).  Every roofline
 rate stays <= 1.05 x the card's peak (SM count x max clock): a higher
-reading means work was deleted.
+reading means work was deleted.  The external fields: float32 on the card
+against float64 on the CPU within chip_smoke.FIELD_TOL (four times the JAX
+package's own float32 error at the same points), with no host sync inside
+``force`` and with TF32 allowed; the CylSpline fit's two-set potential
+kernel within 2e-6 of its plain version.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +39,11 @@ from nbody_streams_tpu_torch.ops import probe
 from nbody_streams_tpu_torch.ops import roofline as rl
 from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
 from nbody_streams_tpu_torch.ops.pairwise import compute_forces_direct
+from nbody_streams_tpu_torch.potentials import fit
+
+import chip_smoke
+from nbody_streams_tpu_torch.benchmarks.fields import (
+    field_builders, field_points)
 
 KINDS = ["newtonian", "plummer", "dehnen_k1", "dehnen_k2", "spline"]
 G = 4.300917270069976e-06
@@ -300,3 +311,104 @@ def test_tile_config_geometry_agrees_with_default(dev):
         got = DirectGravity(m, np.full(16384, H), device=dev,
                             tile_config=tile).accel(p)
         assert _rel(got, base) < 2e-6
+
+
+@pytest.fixture(scope="module")
+def fields():
+    # module fixtures are set up before ``dev`` can skip: skip here too
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return {name: (build(), times)
+            for name, (build, times) in field_builders().items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(chip_smoke.FIELD_TOL))
+def test_field_on_card_matches_fp64(dev, fields, name):
+    """Float32 on the card vs float64 on the CPU at 8,192 points, each
+    time of the field, with no host sync inside force."""
+    pot64, times = fields[name]
+    gpu = copy.deepcopy(pot64).to(dev, torch.float32)
+    x = field_points(8192)
+    xg = torch.tensor(x, device=dev)
+    tol_f, tol_p = chip_smoke.FIELD_TOL[name]
+    for t in times:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            f = gpu.force(xg, t)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert f.is_cuda and f.dtype == torch.float32
+        want = pot64.force(torch.tensor(x.astype(np.float64)), t)
+        assert _rel(f.cpu(), want) < tol_f
+        phi = gpu.potential(xg, t).cpu()
+        want = pot64.potential(torch.tensor(x.astype(np.float64)), t)
+        assert _rel(phi, want) < tol_p
+
+
+@pytest.mark.cuda
+def test_cylspline_tf32_cannot_enter(dev, fields):
+    """The bicubic contraction is elementwise: allowing TF32 matmuls
+    changes nothing."""
+    pot64, _ = fields["FIRE BFE"]
+    cyl = copy.deepcopy(pot64.components[1]).to(dev, torch.float32)
+    x = field_points(8192)
+    xg = torch.tensor(x, device=dev)
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = cyl.force(xg)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = cyl.force(xg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert torch.equal(on, off)
+    want = pot64.components[1].force(torch.tensor(x.astype(np.float64)))
+    assert _rel(on.cpu(), want) < chip_smoke.FIELD_TOL["FIRE BFE"][0]
+
+
+@pytest.mark.cuda
+def test_fit_two_set_kernel_matches_plain(dev):
+    """fit_cylspline_from_particles on the card: its two-set potential
+    kernel (plummer, Kahan) vs the plain version at the kernel's S on the
+    fit's own probe grid, and the tables vs the plain version's."""
+    xv, m = make_plummer_sphere(8192, M_total=1e9, a=1.0, seed=4)
+    pos = xv[:, :3]
+    before = cd.LAUNCHES["direct"]
+    on_card = fit.fit_cylspline_from_particles(pos, m, softening=H,
+                                               device=dev)
+    assert cd.LAUNCHES["direct"] == before + 1
+    plain = fit.fit_cylspline_from_particles(pos, m, softening=H,
+                                             device="cpu")
+    assert _rel(torch.tensor(on_card.phi), torch.tensor(plain.phi)) < 2e-6
+    probes = fit.cylspline_grid(pos)[3]
+    pre = cd._soft_pre("plummer", torch.zeros(len(probes), device=dev))
+    tgt = cd._targets(torch.tensor(probes, dtype=torch.float32, device=dev),
+                      pre)
+    src = cd._sources(
+        torch.tensor(pos, dtype=torch.float32, device=dev),
+        torch.tensor(m * G, dtype=torch.float32, device=dev),
+        cd._soft_pre("plummer", torch.full((len(m),), H, device=dev)),
+        cd.TN)
+    splits = cd.split_count("direct", tgt.shape[1], src.shape[1], _sms(dev))
+    got = cd._direct_tile(tgt, src, "plummer", "pot", True, 1e-15)
+    want = cd._direct_tile_reference(tgt, src, "plummer", "pot", True, 1e-15,
+                                     splits=splits)
+    assert _rel(got, want) < 2e-6
+
+
+@pytest.mark.cuda
+def test_loaders_build_on_the_card(dev):
+    """The loaders and the *GPU names build on the card by default, and
+    positions that are not tensors are evaluated there."""
+    from nbody_streams_tpu_torch import potentials as P
+
+    x = field_points(64).astype(np.float64)
+    for pot in (P.make_potential(type="NFW", mass=1e12, scaleRadius=20.0),
+                P.NFWPotentialGPU(mass=1e12, scaleRadius=20.0),
+                P.load_potential_ini(P.mw_lmc_data_dir().parent
+                                     / "MWPotential22.ini")):
+        assert all(b.is_cuda for b in pot.buffers())
+        f = pot.force(x)
+        assert f.is_cuda and f.dtype == torch.float64

@@ -3,9 +3,12 @@ end on the CPU, and the files each package writes read by the other.
 
 N = 512 Plummer sphere, 20 KDK steps of dt = 2e-5, spline h = 0.05,
 float32 + Kahan.  The JAX side runs its jnp oracle; the port runs its CUDA
-path (on the CPU: the kernels' plain versions) and its torch oracle.
-Tolerance: 1e-6 * max |x| on positions and velocities (fp32 force sums in
-another order).
+path (on the CPU: the kernels' plain versions) and its torch oracle, alone
+and in an external field (MWPotential22; the MW+LMC evolving field, the
+satellite placed at (14, 0, 6) kpc).  Tolerance: 1e-6 * max |x| on
+positions and velocities (fp32 force sums in another order; the port
+evaluates the field in the fp32 state's dtype, the JAX package in its
+fp64 tables).
 """
 import subprocess
 import sys
@@ -17,7 +20,12 @@ import torch
 
 import nbody_streams_tpu as jst
 import nbody_streams_tpu_torch as tst
+from nbody_streams_tpu.potentials import load_potential_ini as jax_ini
+from nbody_streams_tpu.potentials.mwlmc import (
+    load_mw_lmc_potential as jax_mwlmc)
 from nbody_streams_tpu_torch import run as trun
+from nbody_streams_tpu_torch.potentials import (
+    load_mw_lmc_potential, load_potential_ini)
 
 torch.set_num_threads(2)
 
@@ -56,12 +64,50 @@ def jax_final(case, tmp_path_factory):
     return _run(jst, xv, species, tmp_path_factory.mktemp("jax"), STEPS)
 
 
-@pytest.mark.parametrize("impl", ["cuda", "torch"])
-def test_run_simulation_matches_jax(case, jax_final, tmp_path, impl):
+MW22 = "data/potentials/MWPotential22.ini"
+#: the satellite's place in the field (examples/stream_nbody.py)
+ORBIT = np.array([14.0, 0.0, 6.0, 30.0, 150.0, -10.0])
+
+
+def _fields(pkg):
+    if pkg is tst:
+        return {"mw22": lambda: load_potential_ini(
+                    "nbody_streams_tpu_torch/" + MW22, device="cpu"),
+                "mwlmc": lambda: load_mw_lmc_potential(device="cpu")[0]}
+    return {"mw22": lambda: jax_ini("nbody_streams_tpu/" + MW22),
+            "mwlmc": lambda: jax_mwlmc()[0]}
+
+
+@pytest.mark.parametrize("impl,field", [
+    pytest.param("cuda", None, id="cuda"),
+    pytest.param("torch", None, id="torch"),
+    pytest.param("cuda", "mw22", id="cuda-mw22"),
+    pytest.param("cuda", "mwlmc", id="cuda-mwlmc")])
+def test_run_simulation_matches_jax(case, jax_final, tmp_path, impl, field):
     xv, species = case
-    got = _run(tst, xv, species, tmp_path, STEPS, impl=impl)
+    if field is None:
+        got = _run(tst, xv, species, tmp_path, STEPS, impl=impl)
+        want = jax_final
+    else:
+        xv = xv + ORBIT
+        t0 = -1.0 if field == "mwlmc" else 0.0
+        runs = {}
+        for pkg in (tst, jst):
+            sp = species if pkg is tst else _jax_species(species)
+            pot = _fields(pkg)[field]()
+            kw = dict(impl=impl) if pkg is tst else {}
+            runs[pkg] = pkg.run_simulation(
+                xv, sp, t0, t0 + STEPS * DT, DT, architecture="cpu",
+                output_dir=str(tmp_path / pkg.__name__), verbose=False,
+                snapshots=3, external_potential=pot, **kw)["dark"]
+        got, want = runs[tst], runs[jst]
+        # the field moved the satellite: its centre of mass accelerated
+        drift = got[:, 3:].mean(0) - xv[:, 3:].mean(0)
+        assert np.abs(drift).max() > 1e-3
     assert got.shape == (N, 6) and got.dtype == np.float64
-    _assert_close(got, jax_final)
+    _assert_close(got, want)
+    if field is not None:
+        return
     # the JAX package's reader reads the port's snapshots
     reader = jst.ParticleReader(str(tmp_path / "snapshot*.h5"))
     assert list(reader.Snapshots) == [0, 1, 2]
@@ -97,6 +143,9 @@ def test_import_leaves_jax_out():
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nbody_streams_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    code = code.replace("nbody_streams_tpu_torch;",
+                        "nbody_streams_tpu_torch.potentials;")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
 def test_not_ported_options_raise(case, tmp_path):
@@ -106,7 +155,6 @@ def test_not_ported_options_raise(case, tmp_path):
         **kw)
     for kw, item in ((dict(method="tree"), "item 8"),
                      (dict(method="scf"), "item 7"),
-                     (dict(external_potential=object()), "item 5"),
                      (dict(dynamical_friction=True), "item 6"),
                      (dict(impl="sharded"), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
@@ -119,6 +167,9 @@ def test_not_ported_options_raise(case, tmp_path):
         trun._resolve_device("tpu")
     with pytest.raises(TypeError, match="bogus"):
         run(architecture="cpu", bogus=1)
+    # any object with force(pos, t) is a field; one without is refused
+    with pytest.raises(TypeError, match="force"):
+        run(architecture="cpu", external_potential=object())
 
 
 def test_gpu_architecture_raises_without_a_card(case, tmp_path):
@@ -128,7 +179,9 @@ def test_gpu_architecture_raises_without_a_card(case, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tst.run_simulation(xv, species, 0.0, DT, DT, architecture="gpu",
                            output_dir=str(tmp_path), verbose=False)
-    assert trun._resolve_device("auto").type == "cpu"
+    # 'auto' means the card too: without one it raises, naming 'cpu'
+    with pytest.raises(RuntimeError, match="architecture='cpu'"):
+        trun._resolve_device("auto")
 
 
 def test_overwrite_and_continue_guards(case, tmp_path):
