@@ -7,7 +7,8 @@ this checkout, checks each against its plain torch version on the card,
 drives ``run_simulation(method='direct', architecture='gpu')`` on the bench
 case (N = 65,536 Plummer, spline softening h = 0.05, float32 + Kahan,
 dt = 2e-5), times it, and drives the measurement path (probe, bench,
-roofline, speed of light, tile sweep, bench suite).  Phases:
+roofline, speed of light, tile sweep, bench suite), the external fields,
+dynamical friction, the SCF tier and the samplers.  Phases:
 
   (a) card name and power limit; kernel build time; each force kernel's
       registers, spills and issue slots a pair from its SASS (the base
@@ -43,12 +44,32 @@ roofline, speed of light, tile sweep, bench suite).  Phases:
       centre of mass on the fp64 orbit of one point); the KDK ms/step with
       and without the MW+LMC field; and fit_cylspline_from_particles
       through the two-set potential kernel (vs its plain version, 2e-6)
+  (j) dynamical friction: the DF tutorial's satellite (Plummer N = 65,536,
+      M = 5e9, a = 0.5 at +40 kpc, +120 km/s) in its NFW host (the bare
+      class, on the CPU) through run_simulation, 750 steps of 2e-3 with
+      DF off, on (shrinking sphere) and on (bound_phi): both DF runs end
+      closer in; the friction term at step 100 of the bound_phi loop,
+      float32 on the card vs float64 on the CPU within DF_TOL and with no
+      host sync; its launches; the base and band launches a step of each
+      path; the KDK ms/step of each
+  (k) the SCF tier at N = 1M: float32 vs float64 on the card within
+      SCF_TOL with TF32 off and on; ms and launches a force, ms a KDK
+      step (benchmarks.scf speed); the accuracy ladder at N = 65,536
+      against docs/runs/scf_ladder.txt (5%) and the single-pass Plummer
+      kernel there vs its plain version; 200 steps of
+      run_simulation(method='scf') with |dE/E| < 1e-4; scf_groups on a
+      two-centre case; sample_quasispherical (65,536, then 0.25 t_dyn on
+      the card, median radius within 8%), sample_disk (1M in
+      McMillan17), make_king_potential on the card vs the CPU
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card, and
-the one before that a JSON object of the kernels: launches in phases (d)
-and (i) for the force kernels (by phase under ``launches_by_path``) and in
-phase (g)'s measurement path for the roofline kernels, max error and times from (b)/(g), each kernel's bound
+the one before that a JSON object of the kernels: for the force kernels
+the launches of each run path of phases (d), (i), (j) and (k) under
+``launches_by_path``, counted by kernel form (the base pass, the single
+pass, the band pass) where the wrapper launches it, and in phase (g)'s
+measurement path for the roofline kernels; max error and times from
+(b)/(g)/(i)/(k), each kernel's bound
 (the larger of its operations over the card's peak and its bytes over
 the memory rate) and, for the force kernels, S.
 Exits nonzero, and prints no result, without a CUDA device.
@@ -61,6 +82,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -88,7 +110,8 @@ PEAK_BYTES = 3.35e12
 # G m), 6 for the three multiply-adds into the sum (direct_math.cuh).
 # Spline: the same 19, the pair min of 1/h, and 23 in force_pre<SPLINE>
 # (r, newton, h^-3, q, q^2, 5 inner, 9 outer, 2 compares, 2 selects)
-PAIR_FLOPS = {"newtonian": 19, "spline": 43}
+# Plummer: the Newtonian 19, the pair max of h^2 and its add into r^2
+PAIR_FLOPS = {"newtonian": 19, "spline": 43, "plummer": 21}
 # Plummer potential: 3 subtracts, 6 for r^2 + eps2, the pair max of h^2,
 # the add of h^2, 1 rsqrt, the multiply by G m and the add into the sum
 POT_FLOPS = {"plummer": 14}
@@ -109,6 +132,33 @@ FIELD_TOL = {"MWPotential22": (3.9e-6, 7.8e-7),
              "McMillan17_streams": (3.0e-6, 9.5e-7),
              "MW+LMC": (2.9e-6, 1.2e-6),
              "FIRE BFE": (4.8e-4, 5.5e-6)}
+# card float32 vs CPU float64 of the friction vector a_df, |da| / |a|, at a
+# bound_phi update: four times the JAX package's own float32 error at the
+# same kind of state (tests/test_torch_friction.py::
+# test_df_fp32_error_within_chip_tolerance measures it and pins this)
+DF_TOL = 3.5e-6
+# SCFGravity(nmax=8, lmax=4, a=1) float32 vs float64, max |err| / max |fp64|
+# of the accelerations and the potential: four times the JAX package's own
+# float32 error on the 65,536-particle Plummer sphere (seed 7;
+# tests/test_torch_scf.py::test_scf_fp32_error_within_chip_tolerance);
+# TF32 in the contractions would read ~1e-3
+SCF_TOL = (3.1e-6, 2.8e-6)
+# phase (j): the DF tutorial's satellite (examples/dynamical_friction_
+# tutorial.py) at the bench case's N, in its NFW host, 750 steps of 2e-3
+DF_DT, DF_STEPS = 2e-3, 750
+DF_RUNS = {"df_off": {},
+           "df_shrinking_sphere": dict(df_M_sat=5e9, df_sigma_method="jeans",
+                                       df_update_interval=10),
+           "df_bound_phi": dict(df_M_sat=5e9, df_sigma_method="jeans",
+                                df_update_interval=10,
+                                df_com_method="bound_phi")}
+# phase (k): the SCF tier at the size of the JAX package's scf_bench speed
+# and drift runs; the ladder's record (an accuracy record of the same
+# truncated field on the same sample, not a time) and its tolerance
+N_SCF = 1_048_576
+SCF_DRIFT_STEPS = 200
+LADDER_RECORD = "docs/runs/scf_ladder.txt"
+LADDER_TOL = 0.05
 
 
 def log(msg):
@@ -401,7 +451,7 @@ def phase_d(dev):
     log(f"(d) run_simulation: {steps} steps in {wall:.2f} s, |dE/E| = "
         f"{de:.3e} (limit 1e-4), launches {launches}, branches {branches}")
     check(de < 1e-4, f"|dE/E| = {de:.3e} >= 1e-4")
-    check(launches["direct"] > 0 and launches["band"] > 0,
+    check(launches["base"] > 0 and launches["band"] > 0,
           f"main path missed a kernel: {launches}")
     check(branches["two_pass"] > 0, f"two-pass branch never ran: {branches}")
     return launches
@@ -738,9 +788,9 @@ def phase_i(dev, bench_ms):
             save_snapshots=False, verbose=False)["dark"]
         wall = time.perf_counter() - t
         launches[path] = dict(cd.LAUNCHES)
-        check(cd.LAUNCHES["direct"] == steps + 1
+        check(cd.LAUNCHES["base"] == steps + 1
               and cd.LAUNCHES["band"] == steps + 1
-              and cd.BRANCHES["single_pass"] == 0,
+              and cd.LAUNCHES["single"] == 0,
               f"{path}: not every force call ran both two-pass kernels: "
               f"{cd.LAUNCHES}, {cd.BRANCHES}")
         check(res.shape == (N_BENCH, 6) and np.isfinite(res).all(),
@@ -820,7 +870,7 @@ def phase_i(dev, bench_ms):
     coefs = fit.fit_cylspline_from_particles(pos, m, softening=H,
                                              device=dev)
     fit_s = time.perf_counter() - t
-    fit_launches = cd.LAUNCHES["direct"]
+    fit_launches = cd.LAUNCHES["single"]
     check(fit_launches > 0, "the fit launched no kernel")
     fitted = nst.potentials.CylSplinePotential(coefs)
     check(np.isfinite(fitted.potential(np.array([[1.0, 0.5, 0.2]]))).all(),
@@ -866,6 +916,423 @@ def phase_i(dev, bench_ms):
     return stats, launches
 
 
+def df_case():
+    """The DF tutorial's satellite: Plummer N = 65,536, M = 5e9, a = 0.5,
+    at +40 kpc in x and +120 km/s in v_y (seed 4)."""
+    from nbody_streams_tpu_torch import make_plummer_sphere
+
+    xv, m = make_plummer_sphere(N_BENCH, M_total=5e9, a=0.5, seed=4)
+    xv[:, 0] += 40.0
+    xv[:, 4] += 120.0
+    return xv, m
+
+
+def profile_launches(fn):
+    """(CUDA kernels launched, their device ms) of one call under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels), sum(e.device_time for e in kernels) / 1e3
+
+
+def df_friction(host, kw):
+    """The friction of a DF_RUNS entry, built as run_simulation builds
+    it (before the run moves its own copy to the card)."""
+    from nbody_streams_tpu_torch.friction import make_df_force_extra
+
+    return make_df_force_extra(
+        host, M_sat=kw["df_M_sat"], t_start=0.0, t_end=DF_STEPS * DF_DT,
+        **{k.removeprefix("df_"): v for k, v in kw.items()
+           if k != "df_M_sat"})
+
+
+def phase_j(dev):
+    """Dynamical friction on the card, through run_simulation."""
+    import nbody_streams_tpu_torch as nst
+    from nbody_streams_tpu_torch import bench
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+    from nbody_streams_tpu_torch.potentials import NFWPotential
+
+    t_phase = time.perf_counter()
+    # the bare class, as the example writes it: built on the CPU in
+    # float64, so the run moves its own copies (field and friction)
+    host = NFWPotential(mass=1e12, scaleRadius=20.0)
+    xv, m = df_case()
+    species = [nst.Species.dark(N=N_BENCH, mass=float(m[0]), softening=H)]
+    launches, radius, stats = {}, {}, {}
+    for path, kw in DF_RUNS.items():
+        for key in cd.LAUNCHES:
+            cd.LAUNCHES[key] = 0
+        for key in cd.BRANCHES:
+            cd.BRANCHES[key] = 0
+        with tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.perf_counter()
+            res = nst.run_simulation(
+                xv, species, 0.0, DF_STEPS * DF_DT, DF_DT,
+                architecture="gpu", external_potential=host,
+                dynamical_friction=bool(kw), output_dir=out_dir,
+                save_snapshots=False, verbose=False, **kw)["dark"]
+            wall = time.perf_counter() - t0
+        launches[path] = dict(cd.LAUNCHES)
+        branches = dict(cd.BRANCHES)
+        check(res.shape == (N_BENCH, 6) and np.isfinite(res).all(),
+              f"{path}: final state")
+        radius[path] = float(np.linalg.norm(res[:, :3].mean(0)))
+        per_step = {k: v / DF_STEPS for k, v in launches[path].items()}
+        stats[path] = dict(wall_ms_per_step=1e3 * wall / DF_STEPS,
+                           launches_per_step=per_step, branches=branches)
+        log(f"(j) run_simulation {path}: {DF_STEPS} steps in {wall:.2f} s "
+            f"({1e3 * wall / DF_STEPS:.3f} ms/step wall), final centre "
+            f"of mass at {radius[path]:.4f} kpc (from 40); launches a "
+            f"step: base pass {per_step['base']:.4f}, band pass "
+            f"{per_step['band']:.4f}, single pass {per_step['single']:.4f} "
+            f"(branches {branches})")
+    check(all(b.device.type == "cpu" for b in host.buffers()),
+          "the caller's field was moved")
+    for path in ("df_shrinking_sphere", "df_bound_phi"):
+        check(radius[path] < radius["df_off"],
+              f"{path}: {radius[path]:.4f} kpc is not inside the DF-off "
+              f"run's {radius['df_off']:.4f} kpc")
+
+    # the KDK loop of each run (bench.measure: the DF case, the host field
+    # and the friction moved as run_nbody moves them), best of 3 windows
+    # of 20 steps after 100 warm-up steps
+    loops = {}
+    for path, kw in DF_RUNS.items():
+        loops[path] = bench.measure(
+            dev, windows=3, steps=20, case=(xv, m), external_potential=host,
+            force_extra=df_friction(host, kw) if kw else None, dt=DF_DT,
+            warmup=100)
+        stats[path]["kdk_ms"] = loops[path]["ms_per_step"]
+        log(f"(j) KDK step {path}: {stats[path]['kdk_ms']:.3f} ms/step "
+            "(best of 3 x 20)")
+
+    # the friction term at step 100 of the bound_phi loop, on that loop's
+    # state and friction: float32 on the card against float64 on the CPU
+    loop = loops["df_bound_phi"]
+    state, solver, fx = loop["warm"], loop["solver"], loop["force_extra"]
+    check(state.step == 100, f"the warm state is at step {state.step}")
+    t = 100 * DF_DT
+    phi = solver.potential(state.pos, order=state.sort_order)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        acc32, st32 = fx(state.extra_state, state.pos, state.vel,
+                         solver.mass, t, phi=phi, step=100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    phi64 = DirectGravity(m, np.full(N_BENCH, H), precision="float64",
+                          device=dev).potential(state.pos.double()).cpu()
+    fx64 = df_friction(host, DF_RUNS["df_bound_phi"]).to("cpu",
+                                                         torch.float64)
+    extra64 = {k: (v.cpu().double() if isinstance(v, torch.Tensor)
+                   and v.is_floating_point() else
+                   v.cpu() if isinstance(v, torch.Tensor) else v)
+               for k, v in state.extra_state.items()}
+    acc64, st64 = fx64(extra64, state.pos.double().cpu(),
+                       state.vel.double().cpu(), torch.tensor(m), t,
+                       phi=phi64, step=100)
+    a32, a64 = st32["a_df"].double().cpu(), st64["a_df"]
+    err = float((a32 - a64).norm() / a64.norm())
+    flips = int((st32["bound"].cpu() != st64["bound"]).sum())
+    check(acc32.is_cuda and acc32.dtype == torch.float32
+          and torch.isfinite(acc32).all().item(), "friction term on the card")
+    log(f"(j) friction at step 100 of df_bound_phi: a_df float32 card "
+        f"{a32.numpy()} vs float64 CPU {a64.numpy()}: |da|/|a| {err:.3e} "
+        f"(tol {DF_TOL:g}); bound {int(st64['bound'].sum())} of {N_BENCH}, "
+        f"{flips} differ; M_bound {float(st32['m_bound']):.6e} vs "
+        f"{float(st64['m_bound']):.6e}; no host sync in __call__")
+    check(err < DF_TOL, f"friction float32 error {err:.3e} >= {DF_TOL}")
+    check(flips <= N_BENCH // 10000, f"{flips} bound flags differ")
+
+    # launches the friction term adds: a full update (step 100) and a
+    # predictor step (step 101), and per step at update_interval 10
+    friction = {}
+    for label, step in (("update", 100), ("predictor", 101)):
+        friction[label] = profile_launches(lambda s=step: fx(
+            state.extra_state, state.pos, state.vel, solver.mass, t,
+            phi=phi, step=s))
+    per_step = (friction["update"][0] + 9 * friction["predictor"][0]) / 10
+    log(f"(j) the friction term's launches: {friction['update'][0]} a full "
+        f"update ({friction['update'][1]:.4f} device ms), "
+        f"{friction['predictor'][0]} a predictor step "
+        f"({friction['predictor'][1]:.4f} device ms): {per_step:.1f} a "
+        f"step at update_interval 10")
+    stats["friction_launches"] = dict(update=friction["update"][0],
+                                      predictor=friction["predictor"][0],
+                                      per_step=per_step)
+
+    log(f"(j) wall {time.perf_counter() - t_phase:.1f} s")
+    return stats, launches
+
+
+def ladder_record():
+    """{(nmax, lmax): (median, p99)} from docs/runs/scf_ladder.txt."""
+    out = {}
+    text = (Path(__file__).resolve().parent / LADDER_RECORD).read_text()
+    for line in text.splitlines():
+        if line.startswith("{"):
+            r = json.loads(line)
+            out[(r["nmax"], r["lmax"])] = (r["median_rel_err"],
+                                           r["p99_rel_err"])
+    return out
+
+
+def hernquist_sample(rng, n, a, m_tot, center):
+    u = rng.uniform(0, 1, n)
+    s = np.clip(np.sqrt(u) / (1 - np.sqrt(u)), 0, 50)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return a * s[:, None] * d + np.asarray(center), np.full(n, m_tot / n)
+
+
+def phase_k(dev):
+    """The SCF tier and the samplers on the card."""
+    import nbody_streams_tpu_torch as nst
+    from nbody_streams_tpu_torch.benchmarks import scf as scf_bench
+    from nbody_streams_tpu_torch.fast_sims import king
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+    from nbody_streams_tpu_torch.ops import scf as ts
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+
+    t_phase = time.perf_counter()
+    stats, launches = {}, {}
+    # float32 vs float64 at N = 1M, TF32 off and switched on globally
+    xv, m = plummer_case(N_SCF, 7)
+    s64 = ts.SCFGravity(m, nmax=8, lmax=4, a=1.0, precision="float64",
+                        device=dev)
+    p64 = torch.tensor(xv[:, :3], device=dev)
+    want = (s64.accel(p64), s64.potential(p64))
+    s32 = ts.SCFGravity(m, nmax=8, lmax=4, a=1.0, device=dev)
+    p32 = p64.float()
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            got = (s32.accel(p32), s32.potential(p32))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        errs = [rel_err(g, w)[0] for g, w in zip(got, want)]
+        log(f"(k) SCFGravity(8, 4) float32 vs float64 on the card at "
+            f"N={N_SCF}, allow_tf32={tf32}: accel {errs[0]:.3e}, potential "
+            f"{errs[1]:.3e} (tol {SCF_TOL[0]:g}, {SCF_TOL[1]:g})")
+        check(errs[0] < SCF_TOL[0] and errs[1] < SCF_TOL[1],
+              f"SCF float32 error with allow_tf32={tf32}: {errs}")
+        stats[f"fp32_err_tf32_{tf32}"] = errs
+    # what the guard keeps out: the two contractions with TF32 allowed and
+    # no guard (the coefficients, then the potential from them)
+    R, B = ts._basis_rows(p32, 1.0, 8, 4, s32.labels, s32._harm)
+    mR = (s32.mass[:, None] * R).T
+    A = s32._coefs(p32)
+    tight = (torch.matmul(mR, B), ts._phi_of(p32, A, 1.0, s32.G, 8, 4,
+                                             s32.labels, s32._harm))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        loose = (torch.matmul(mR, B), ts._phi_of(p32, A, 1.0, s32.G, 8, 4,
+                                                 s32.labels, s32._harm))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    unguarded = [rel_err(lo, ti)[0] for lo, ti in zip(loose, tight)]
+    log(f"(k) without the guard, TF32 allowed: the coefficient "
+        f"contraction {unguarded[0]:.3e} and the potential "
+        f"{unguarded[1]:.3e} of max off IEEE fp32")
+    stats["tf32_unguarded"] = unguarded
+    del R, B, mR, A, loose, tight, want, p64, s64
+
+    # ms per force, launches and device ms per force, ms per KDK step
+    rec = scf_bench.run_speed(ns=(N_SCF,), device=dev)[0]
+    stats["speed"] = rec
+    log(f"(k) SCF speed at N={N_SCF}, (8, 4): {rec['ms_per_force_eval']:.3f} "
+        f"ms a force (least {rec['ms_per_force_eval_min']:.3f}), "
+        f"{rec['launches_per_force']} CUDA launches and "
+        f"{rec['device_ms_per_force']:.3f} device ms a force, busy share "
+        f"{rec['busy_share']:.3f}; {rec['ms_per_kdk_step']:.3f} ms a KDK "
+        f"step; peak {rec['peak_gb']:.2f} GB")
+
+    # the ladder against the direct Plummer-law sum (single-pass kernel)
+    for key in cd.LAUNCHES:
+        cd.LAUNCHES[key] = 0
+    rows = scf_bench.run_ladder(device=dev)
+    launches["scf_ladder"] = dict(cd.LAUNCHES)
+    check(cd.LAUNCHES == {"base": 0, "single": 1, "band": 0},
+          f"the ladder's reference did not take the single pass once: "
+          f"{cd.LAUNCHES}")
+    record = ladder_record()
+    for r in rows:
+        want_med, want_p99 = record[(r["nmax"], r["lmax"])]
+        d_med = abs(r["median_rel_err"] / want_med - 1)
+        d_p99 = abs(r["p99_rel_err"] / want_p99 - 1)
+        log(f"(k) ladder ({r['nmax']}, {r['lmax']}): median "
+            f"{r['median_rel_err']:.5f} (record {want_med:.5f}, "
+            f"{d_med:.3f} off), p99 {r['p99_rel_err']:.5f} (record "
+            f"{want_p99:.5f}, {d_p99:.3f} off); tol {LADDER_TOL}")
+        check(d_med < LADDER_TOL and d_p99 < LADDER_TOL,
+              f"ladder ({r['nmax']}, {r['lmax']}) off its record")
+    stats["ladder"] = rows
+
+    # row 2 at the ladder's shape: the Plummer force, kernel vs plain
+    x, mm = scf_bench.ladder_case()
+    kind = "plummer"
+    pos = torch.tensor(x, dtype=torch.float32, device=dev)
+    pre = cd._soft_pre(kind, torch.full((len(x),), 1e-4, device=dev))
+    tgt = cd._targets(pos, pre)
+    src = cd._sources(pos, torch.tensor(mm * 4.300917270069976e-06,
+                                        dtype=torch.float32, device=dev),
+                      pre, cd.TN)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = cd.split_count("direct", tgt.shape[1], src.shape[1], sms)
+
+    def kernel():
+        return cd._direct_tile(tgt, src, kind, "acc", True, 1e-15)
+
+    def plain():
+        return cd._direct_tile_reference(tgt, src, kind, "acc", True, 1e-15,
+                                         splits=splits)
+
+    got, ref = kernel(), plain()
+    rel, absolute = rel_err(got, ref)
+    check(rel < 2e-6, f"single-pass Plummer kernel vs plain: {rel:.2e}")
+    ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 1)
+    pairs = tgt.shape[1] * len(x)
+    bound_ms, bound_by = bound(pairs * PAIR_FLOPS[kind],
+                               nbytes(tgt, src, got))
+    stats["row2"] = dict(max_abs_err=absolute, rel=rel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, splits=splits)
+    log(f"(k) direct_tile_kernel<PLUMMER,ACC,Kahan> single pass at "
+        f"N={len(x)} (the ladder's reference), S={splits}: rel err "
+        f"{rel:.2e} (tol 2e-6), {ms:.3f} ms vs plain {plain_ms:.3f} ms; "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {PAIR_FLOPS[kind]} FP32 ops "
+        f"a pair), {bound_ms / ms:.4f} of bound")
+
+    # energy drift through run_simulation(method='scf')
+    rec = scf_bench.run_drift(n=N_SCF, steps=SCF_DRIFT_STEPS, device=dev,
+                              verbose=False)
+    stats["drift"] = rec
+    log(f"(k) run_simulation(method='scf') at N={N_SCF}: "
+        f"{SCF_DRIFT_STEPS} steps of 2e-5, |dE/E| = {rec['value']:.3e} "
+        f"(limit 1e-4) in the truncated Hamiltonian, "
+        f"{rec['ms_per_step']:.3f} ms/step wall, Q {rec['Q0']:.4f} -> "
+        f"{rec['Q1']:.4f}")
+    check(rec["finite"] and rec["value"] < 1e-4,
+          f"SCF drift {rec['value']:.3e}")
+
+    # scf_groups on the two-centre case, the satellite a tenth of the host
+    rng = np.random.default_rng(11)
+    n_mw, n_sat = N_BENCH, 6554
+    p1, m1 = hernquist_sample(rng, n_mw, 1.0, 1e9, (0, 0, 0))
+    p2, m2 = hernquist_sample(rng, n_sat, 0.3, 1e8, (8.0, 0, 0))
+    pos2, m12 = np.vstack([p1, p2]), np.concatenate([m1, m2])
+    pt = torch.tensor(pos2, dtype=torch.float32, device=dev)
+    ref = DirectGravity(m12, np.full(len(m12), 1e-6), kernel="plummer",
+                        device=dev).accel(pt).double().cpu().numpy()
+    sat = slice(n_mw, None)
+
+    def med(acc):
+        acc = acc.double().cpu().numpy()[sat]
+        return float(np.median(np.linalg.norm(acc - ref[sat], axis=1)
+                               / np.linalg.norm(ref[sat], axis=1)))
+
+    single = med(ts.SCFGravity(m12, nmax=8, lmax=4, a=1.0,
+                               device=dev).accel(pt))
+    groups = {"mw": {"a": 1.0}, "sat": {"a": 0.3, "center": "com"}}
+    comp = med(ts.CompositeSCFGravity(
+        m12, groups=[(slice(0, n_mw), groups["mw"]), (sat, groups["sat"])],
+        nmax=8, lmax=4, device=dev).accel(pt))
+    log(f"(k) two centres at {n_mw} + {n_sat}: median force error on the "
+        f"satellite {single:.4f} single-centre, {comp:.4f} with one "
+        "expansion a group")
+    check(comp < single, "the composite is not better on the satellite")
+    xv2 = np.hstack([pos2, np.zeros_like(pos2)])
+    species = [nst.Species(name="mw", N=n_mw, mass=m1, softening=0.05),
+               nst.Species(name="sat", N=n_sat, mass=m2, softening=0.05)]
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        res = nst.run_simulation(xv2, species, 0.0, 10 * 1e-4, 1e-4,
+                                 architecture="gpu", method="scf",
+                                 scf_nmax=8, scf_lmax=4, scf_groups=groups,
+                                 output_dir=out_dir, save_snapshots=False,
+                                 verbose=False)
+        wall = time.perf_counter() - t0
+    check(all(np.isfinite(v).all() for v in res.values()), "scf_groups run")
+    stats["composite"] = dict(single=single, composite=comp)
+    log(f"(k) run_simulation(method='scf', scf_groups=...): 10 steps in "
+        f"{wall:.2f} s")
+
+    # the samplers
+    G = nst.G_DEFAULT
+    M, a = 1e9, 1.0
+    plummer = nst.potentials.make_potential(type="Plummer", mass=M,
+                                            scaleRadius=a)
+    check(all(b.is_cuda for b in plummer.buffers()), "Plummer not on card")
+
+    def dens(pts):
+        r2 = (np.asarray(pts) ** 2).sum(1)
+        return 3 * M / (4 * np.pi * a**3) * (1 + r2 / a**2) ** -2.5
+
+    t0 = time.perf_counter()
+    xq, mq = nst.sample_quasispherical(dens, plummer, N_BENCH, seed=13,
+                                       r_grid=np.geomspace(1e-3, 1e3, 200))
+    qs_s = time.perf_counter() - t0
+    sp = nst.Species(name="star", N=N_BENCH, mass=float(mq[0]),
+                     softening=0.05)
+    t_dyn = np.sqrt(a**3 / (G * M))
+    for key in cd.LAUNCHES:
+        cd.LAUNCHES[key] = 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        out = nst.run_simulation(xq, [sp], 0.0, 0.25 * t_dyn,
+                                 dt=0.005 * t_dyn, architecture="gpu",
+                                 save_snapshots=False, verbose=False,
+                                 output_dir=out_dir)["star"]
+    launches["quasispherical_run"] = dict(cd.LAUNCHES)
+    r0 = np.median(np.linalg.norm(xq[:, :3], axis=1))
+    r1 = np.median(np.linalg.norm(out[:, :3], axis=1))
+    log(f"(k) sample_quasispherical: {N_BENCH} Plummer tracers in "
+        f"{qs_s:.2f} s; 0.25 t_dyn through run_simulation on the card: "
+        f"median radius {r0:.4f} -> {r1:.4f} ({abs(r1 / r0 - 1):.4f} off, "
+        f"tol 0.08); launches {launches['quasispherical_run']}")
+    check(abs(r1 / r0 - 1) < 0.08, "the sampled Plummer left equilibrium")
+
+    ini = (Path(nst.__file__).resolve().parent / "data" / "potentials"
+           / "McMillan17.ini")
+    mw = nst.potentials.load_potential_ini(ini)
+    sd, rd, hz = 8.95679e+08, 2.49955, 0.3       # its thin disk
+    t0 = time.perf_counter()
+    xd, md = nst.sample_disk(N_SCF, mw, surfaceDensity=sd, scaleRadius=rd,
+                             scaleHeight=hz, seed=3)
+    disk_s = time.perf_counter() - t0
+    m_an = 2 * np.pi * sd * rd**2
+    z_std = xd[:, 2].std()
+    log(f"(k) sample_disk: {N_SCF} thin-disk particles in McMillan17 (on "
+        f"the card) in {disk_s:.2f} s; mass {md.sum():.5e} (exponential "
+        f"disk {m_an:.5e}), z std {z_std:.4f} (hz sqrt 2 = "
+        f"{hz * np.sqrt(2):.4f})")
+    check(np.isfinite(xd).all() and abs(md.sum() / m_an - 1) < 0.01
+          and abs(z_std / (hz * np.sqrt(2)) - 1) < 0.03, "sample_disk")
+
+    t0 = time.perf_counter()
+    kp = king.make_king_potential(mass=1e5, r_core=0.01, W0=7.0)
+    king_s = time.perf_counter() - t0
+    kc = king.KingModel(7.0, 1e5, 0.01).potential()
+    check(all(b.is_cuda for b in kp.buffers()), "King potential not on card")
+    xk = np.random.default_rng(0).normal(0, 0.05, (N_BENCH, 3))
+    ef, _ = rel_err(kp.force(xk).cpu(), kc.force(xk))
+    ep, _ = rel_err(kp.potential(xk).cpu(), kc.potential(xk))
+    log(f"(k) make_king_potential(W0=7) built in {king_s:.2f} s on the "
+        f"card; float64 card vs CPU at {N_BENCH} points: force {ef:.3e}, "
+        f"potential {ep:.3e} (tol 1e-10)")
+    check(ef < 1e-10 and ep < 1e-10, "King card vs CPU")
+    stats["samplers_s"] = dict(quasispherical=qs_s, disk=disk_s, king=king_s)
+    log(f"(k) wall {time.perf_counter() - t_phase:.1f} s")
+    return stats, launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log-dir", help="copy the nvcc build log here")
@@ -888,21 +1355,40 @@ def main():
     roof_stats, roof_launches = phase_g(dev, stats)
     phase_h(dev, stats)
     ext_stats, ext_launches = phase_i(dev, bench["ms_per_step"])
-    replaces = {"direct": "nbody_streams_tpu/ops/pallas_direct.py:301",
-                "band": "nbody_streams_tpu/ops/pallas_direct.py:494"}
+    df_stats, df_launches = phase_j(dev)
+    scf_stats, scf_launches = phase_k(dev)
     # no single PyTorch call computes a softened all-pairs sum or an
     # fma / rsqrt chain: library_ms is null for every kernel
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    # the run paths only: the fit's launch has a row of its own below
-    paths = {"bench": launches, **ext_launches}
-    kernels = [{"name": f"{key}_{'tile_' if key == 'direct' else ''}kernel",
-                "route": "cuda", "source": SOURCE,
-                "replaces": replaces[key],
-                "launches": sum(p[key] for p in paths.values()),
-                "launches_by_path": {k: p[key] for k, p in paths.items()},
-                **{k: stats[key][k] for k in keys}, "library_ms": None,
-                "splits": stats[key]["splits"]}
-               for key in ("direct", "band")]
+    # the run paths, each with its launch counts zeroed just before it (the
+    # fit's launch has a row of its own below; the SCF ladder's reference
+    # launches the single pass once)
+    paths = {"bench": launches, **ext_launches, **df_launches,
+             "quasispherical_run": scf_launches["quasispherical_run"],
+             "scf_ladder": scf_launches["scf_ladder"]}
+
+    def row(name, key, replaces, st):
+        by_path = {k: p[key] for k, p in paths.items()}
+        return {"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                **{k: st[k] for k in keys}, "library_ms": None,
+                "splits": st["splits"]}
+
+    kernels = [
+        # rows 1 and 3: the sorted path's two passes at the bench case
+        row("direct_tile_kernel (base pass)", "base",
+            "nbody_streams_tpu/ops/pallas_direct.py:301", stats["direct"]),
+        # row 2: the single pass, timed at the SCF ladder's shape with the
+        # Plummer law (the ladder's exact reference)
+        row("direct_tile_kernel (single pass)", "single",
+            "nbody_streams_tpu/ops/pallas_direct.py:473 (_call_kernel, "
+            "pallas_call :476)", scf_stats["row2"]),
+        row("band_kernel", "band",
+            "nbody_streams_tpu/ops/pallas_direct.py:494", stats["band"])]
+    # which branch the sorted path picked on the DF runs
+    kernels[1]["branches_by_path"] = {k: df_stats[k]["branches"]
+                                      for k in df_launches}
     # the two-set potential form of the single-pass kernel (the fit's
     # launch site), timed at the fit's shape
     kernels.append({

@@ -60,20 +60,25 @@ def _capacity_probe(K=256, ITERS=200, device="cuda"):
 
 def measure(device="cuda", windows=WINDOWS, steps=STEPS,
             precision="float32_kahan", n=N, external_potential=None,
-            orbit=None, t0=0.0, profile_steps=0):
+            orbit=None, t0=0.0, profile_steps=0, case=None, solver=None,
+            force_extra=None, dt=DT, warmup=WARMUP):
     """Time the bench case (at ``n`` particles and ``precision``; the
-    bench's own by default): ``WARMUP`` steps, then the best of
-    ``windows`` windows of ``steps`` KDK steps (host clock around work
-    ending in a device synchronise).  Returns a dict with ``ms_per_step``,
-    ``gint_per_s``, ``windows_ms`` and ``de`` (|dE/E| from
-    ``system_energy`` before and after the windows).
+    bench's own by default): ``warmup`` steps, then the best of
+    ``windows`` windows of ``steps`` KDK steps of ``dt`` (host clock
+    around work ending in a device synchronise).  Returns a dict with
+    ``ms_per_step``, ``gint_per_s``, ``windows_ms``, ``de`` (|dE/E| from
+    ``system_energy`` before and after the windows), and the loop's
+    ``solver``, ``force_extra`` and ``warm`` (the state after the warm-up).
 
-    ``external_potential`` (a field on ``device``) adds its force to every
-    step, with the Plummer sphere moved by ``orbit`` (a (6,) phase-space
-    offset) and the clock started at ``t0``; ``system_energy`` leaves the
-    field out, so ``de`` is then None.  ``profile_steps`` > 0 runs that
-    many more steps under ``torch.profiler`` (CUDA activity), returned as
-    ``profile``."""
+    ``case`` = (phase space (n, 6), masses) replaces the bench's Plummer
+    sphere, and ``solver`` (on ``device``) its ``DirectGravity``.
+    ``external_potential`` (a field) adds its force to every step, with the
+    sphere moved by ``orbit`` (a (6,) phase-space offset) and the clock
+    started at ``t0``; ``force_extra`` adds its term (the dynamical
+    friction).  Both run as ``run_nbody`` runs them (``run.run_copies``).
+    ``system_energy`` leaves them out, so ``de`` is then None.
+    ``profile_steps`` > 0 runs that many more steps under
+    ``torch.profiler`` (CUDA activity), returned as ``profile``."""
     from . import make_plummer_sphere
     from .integrate import (
         init_state,
@@ -83,31 +88,40 @@ def measure(device="cuda", windows=WINDOWS, steps=STEPS,
         system_energy,
     )
     from .ops.dispatch import DirectGravity
+    from .run import run_copies
 
     device = torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"the bench measures a CUDA device; got {device} "
                            f"(CUDA available: {torch.cuda.is_available()})")
-    xv, m = make_plummer_sphere(n, M_total=1e9, a=1.0, seed=2)
+    xv, m = (make_plummer_sphere(n, M_total=1e9, a=1.0, seed=2)
+             if case is None else case)
+    n = len(m)
     if orbit is not None:
         xv = xv + np.asarray(orbit, float)
-    solver = DirectGravity(m, np.full(n, H), kernel="spline",
-                           precision=precision, impl="cuda", device=device)
-    accel_fn = make_accel_fn(solver, solver.mass, external_potential)
-    step_fn = make_kdk_step(accel_fn, DT, t0)
+    if solver is None:
+        solver = DirectGravity(m, np.full(n, H), kernel="spline",
+                               precision=precision, impl="cuda",
+                               device=device)
+    dtype = torch.float64 if precision == "float64" else torch.float32
+    field, fx = run_copies(external_potential, force_extra, m, device, dtype)
+    accel_fn = make_accel_fn(solver, solver.mass, field, 1, fx)
+    step_fn = make_kdk_step(accel_fn, dt, t0)
     presort = solver.spatial_sort_active
-    every = solver.presort_interval   # run_nbody's order-refresh policy
+    every = getattr(solver, "presort_interval", None)  # as run_nbody
     state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, t0,
+                       dtype=dtype, force_extra=fx,
                        sort_fn=solver.sort_key if presort else None,
                        device=device)
-    state = run_chunk(step_fn, state, WARMUP, presort=presort,
+    state = run_chunk(step_fn, state, warmup, presort=presort,
                       presort_every=every)
+    warm = state
 
     def energy(s):
         ke, pe = system_energy(s, solver, solver.mass)
         return float(ke) + float(pe)
 
-    e0 = energy(state) if external_potential is None else None
+    e0 = energy(state) if field is None and fx is None else None
     times = []
     for _ in range(windows):
         torch.cuda.synchronize(device)
@@ -128,7 +142,8 @@ def measure(device="cuda", windows=WINDOWS, steps=STEPS,
     out = {"n": n, "ms_per_step": best * 1e3,
            "windows_ms": [t * 1e3 for t in times],
            "gint_per_s": n * n / best / 1e9, "de": de,
-           "steps": windows * steps}
+           "steps": windows * steps, "solver": solver, "force_extra": fx,
+           "warm": warm}
     if profile_steps:
         from torch.profiler import ProfilerActivity, profile
 

@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .ops.cuda_direct import slab_sort_key
 from .ops.pairwise import _as_tensor
 
@@ -196,12 +197,43 @@ def init_state(
 _STATE_ARRAYS = ("pos", "vel", "pos_c", "vel_c", "acc", "ext_acc")
 
 
-def from_jax_state(arrays: dict, device=None) -> IntegratorState:
+def _extra_from_numpy(extra, device):
+    """A ForceExtra state from numpy: a dict's arrays become tensors on
+    ``device`` (dtypes kept) and its ``t_prev`` a Python float (the port
+    keeps the step's time on the host); a bare array becomes a tensor."""
+    if isinstance(extra, dict):
+        return {k: (float(np.asarray(v)) if k == "t_prev"
+                    else _extra_from_numpy(v, device))
+                for k, v in extra.items()}
+    if isinstance(extra, (np.ndarray, np.generic)):
+        return torch.as_tensor(np.array(extra), device=device)
+    return extra
+
+
+def _extra_to_numpy(extra):
+    if isinstance(extra, dict):
+        return {k: _extra_to_numpy(v) for k, v in extra.items()}
+    if isinstance(extra, torch.Tensor):
+        return extra.detach().cpu().numpy()
+    if isinstance(extra, float):
+        return np.float64(extra)
+    return extra
+
+
+def from_jax_state(arrays: dict, extra_state=None,
+                   device=None) -> IntegratorState:
     """The port's state from the JAX package's ``IntegratorState`` fields
     given as numpy arrays (``pos, vel, pos_c, vel_c, acc, ext_acc, step,
     sort_order``; ``sort_order`` may be absent, None or empty for no
-    order).  Dtypes are kept; ``extra_state`` is ()."""
-    device = torch.device(device if device is not None else "cpu")
+    order), on ``device``: the card unless the caller passes
+    ``device='cpu'`` (without a card the default raises).  Dtypes are
+    kept.
+
+    ``extra_state`` is the JAX state's ``extra_state`` as numpy (e.g. the
+    friction's dict ``r_com, v_com, r_sphere, a_df, t_prev`` and, for
+    ``bound_phi``, ``m_bound, bound``): its arrays become tensors and
+    ``t_prev`` a Python float.  None gives ()."""
+    device = resolve_device("cuda" if device is None else device)
     fields = {k: torch.as_tensor(np.array(arrays[k]), device=device)
               for k in _STATE_ARRAYS}
     order = arrays.get("sort_order")
@@ -209,15 +241,19 @@ def from_jax_state(arrays: dict, device=None) -> IntegratorState:
         order = None
     if order is not None:
         order = torch.as_tensor(np.asarray(order, np.int64), device=device)
-    return IntegratorState(extra_state=(), step=int(arrays["step"]),
+    extra = (() if extra_state is None
+             else _extra_from_numpy(extra_state, device))
+    return IntegratorState(extra_state=extra, step=int(arrays["step"]),
                            sort_order=order, **fields)
 
 
 def to_numpy_state(state: IntegratorState) -> dict:
     """The state's fields as numpy arrays (the keys of ``from_jax_state``;
-    ``sort_order`` is None when the state holds no order)."""
+    ``sort_order`` is None when the state holds no order), and
+    ``extra_state`` with its tensors as numpy arrays."""
     out = {k: getattr(state, k).detach().cpu().numpy() for k in _STATE_ARRAYS}
     out["step"] = np.int32(state.step)
     out["sort_order"] = (None if state.sort_order is None
                          else state.sort_order.cpu().numpy().astype(np.int32))
+    out["extra_state"] = _extra_to_numpy(state.extra_state)
     return out

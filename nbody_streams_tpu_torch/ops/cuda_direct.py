@@ -23,7 +23,9 @@ Beside each wrapper is its plain torch version (``_direct_tile_reference``,
 ``_band_reference``), with the same masking, splits and Kahan grouping.
 A wrapper runs the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches.
+launches by form: ``base`` (``direct_tile_kernel`` with the band skip),
+``single`` (without it: the single pass and the two-set calls) and
+``band``.
 
 The host side mirrors the TPU path: for the spline at N >= 16384 the
 particles are sorted along x (``slab_sort_key``), a band window of source
@@ -70,8 +72,9 @@ SPLIT_WAVES = 4
 MIN_SPLIT_TILES = 8
 
 #: Kernel launches, counted by the wrappers where they launch (plain ints).
-LAUNCHES = {"direct": 0, "band": 0}
-#: Which branch the sorted path took (two-pass or single-pass fallback).
+LAUNCHES = {"base": 0, "single": 0, "band": 0}
+#: Which branch the sorted path picked (two-pass or single-pass fallback);
+#: counted where it picks, so its launches are in LAUNCHES.
 BRANCHES = {"two_pass": 0, "single_pass": 0}
 
 _MODES = {"acc": 0, "pot": 1}
@@ -389,7 +392,7 @@ def _direct_tile(tgt, src, kind, mode, kahan, eps2, mask_self=False, nb=0,
             None if part is None else part.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "direct_tile_kernel")
-    LAUNCHES["direct"] += 1
+    LAUNCHES["base" if nb else "single"] += 1
     return out
 
 

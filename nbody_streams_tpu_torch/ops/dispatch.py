@@ -9,8 +9,10 @@ precision's dtype) with a choice of implementation:
   CPU device it runs their plain torch versions
 * ``'auto'``  — ``'cuda'`` on a CUDA device, ``'torch'`` on the CPU
 
-All backends share one contract: ``accel(pos) -> (N, 3)`` and
-``potential(pos) -> (N,)``, closed over the particle population.
+The solver lives on ``device``: the card unless the caller passes
+``device='cpu'`` (without a card the default raises).  All backends
+share one contract: ``accel(pos) -> (N, 3)`` and ``potential(pos) ->
+(N,)``, closed over the particle population.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import warnings
 
 import torch
 
+from .._device import resolve_device
 from ..constants import (
     G_DEFAULT,
     PAIRWISE_EPS2,
@@ -55,6 +58,9 @@ class DirectGravity:
     TPU it only unfolds the mass from the matrix-unit moment form, which
     the port does not have.
 
+    ``device`` is the card by default; without one it raises, naming
+    ``device='cpu'``, the CPU option.
+
     ``tile_config`` overrides the band geometry of the slab-sorted path:
     ``tm`` (targets per band tile) and ``tn`` (sources per band row),
     positive multiples of 64.  The TPU's other keys (``max_sub``,
@@ -84,7 +90,7 @@ class DirectGravity:
         self.dtype = torch.float64 if precision == "float64" else torch.float32
         self.G = float(G)
         self.eps2 = float(eps2)
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device("cuda" if device is None else device)
 
         mass = pairwise._as_tensor(mass, self.dtype, self.device)
         softening = pairwise._as_tensor(softening, self.dtype, self.device)

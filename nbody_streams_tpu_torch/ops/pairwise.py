@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..constants import (
     G_DEFAULT,
     PAIRWISE_EPS2,
@@ -127,11 +128,16 @@ def _as_tensor(x, dtype, device):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
-def _prepare(pos, mass, softening, precision, kernel):
+def _prepare(pos, mass, softening, precision, kernel, device):
     validate_kernel(kernel)
     validate_precision(precision)
     dtype = torch.float64 if precision == "float64" else torch.float32
-    device = pos.device if isinstance(pos, torch.Tensor) else None
+    if device is not None:
+        device = resolve_device(device)
+    elif isinstance(pos, torch.Tensor):
+        device = pos.device
+    else:
+        device = resolve_device("cuda")
     pos = _as_tensor(pos, dtype, device)
     if pos.ndim != 2 or pos.shape[1] != 3:
         raise ValueError(f"pos must be (N, 3), got {tuple(pos.shape)}")
@@ -160,13 +166,17 @@ def compute_forces_direct(
     precision: str = "float32_kahan",
     block_size: int | None = None,
     eps2: float = PAIRWISE_EPS2,
+    device=None,
 ):
     """O(N^2) softened gravitational accelerations, plain-torch oracle.
 
     Inputs may be numpy arrays or tensors; the result is an (N, 3) tensor
-    in the precision's dtype, on ``pos``'s device (CPU for numpy input).
+    in the precision's dtype on ``device``.  By default a tensor ``pos``
+    keeps its own device and other input goes to the card (raising
+    without one; pass ``device='cpu'`` for the CPU).
     """
-    pos, mass, soft = _prepare(pos, mass, softening, precision, kernel)
+    pos, mass, soft = _prepare(pos, mass, softening, precision, kernel,
+                               device)
     bs = block_size or _choose_block(pos.shape[0])
     return _pairwise_blocked(pos, mass, soft, float(G), kernel,
                              precision == "float32_kahan", bs, "acc",
@@ -182,9 +192,12 @@ def compute_potential_direct(
     precision: str = "float32_kahan",
     block_size: int | None = None,
     eps2: float = PAIRWISE_EPS2,
+    device=None,
 ):
-    """O(N^2) softened gravitational potential per particle, shape (N,)."""
-    pos, mass, soft = _prepare(pos, mass, softening, precision, kernel)
+    """O(N^2) softened gravitational potential per particle, shape (N,);
+    ``device`` as in :func:`compute_forces_direct`."""
+    pos, mass, soft = _prepare(pos, mass, softening, precision, kernel,
+                               device)
     bs = block_size or _choose_block(pos.shape[0])
     return _pairwise_blocked(pos, mass, soft, float(G), kernel,
                              precision == "float32_kahan", bs, "pot",

@@ -39,22 +39,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from .._device import resolve_device
 from ..constants import G_DEFAULT
 
 __all__ = ["Potential", "CompositePotential", "resolve_device"]
 
 FOUR_PI_G = 4.0 * math.pi * G_DEFAULT
-
-
-def resolve_device(device) -> torch.device:
-    """The device a loader builds its field on: ``'cuda'`` (every loader's
-    default) raises without a card, so the CPU is used only when the
-    caller asks for it with ``device='cpu'``."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={str(device)!r} but torch sees no CUDA "
-                           "device; pass device='cpu' to build on the CPU")
-    return device
 
 
 def _hess6(rows):

@@ -47,6 +47,7 @@ other.
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 
@@ -609,8 +610,13 @@ def build_sersic(mass: float = 1.0, scaleRadius: float = 1.0,
 
 def build_king(mass: float = 1.0, scaleRadius: float = 1.0, W0: float = 3.0,
                trunc: float | None = None, G: float = G_DEFAULT) -> Potential:
-    """``type=King`` needs the King-model ODE solver of ``fast_sims.king``,
-    which is not ported yet."""
-    raise NotImplementedError(
-        "type=King needs fast_sims.king, which is not ported yet "
-        "(ROADMAP.md Queue 1 item 9)")
+    """Native ``type=King`` via the King-model ODE solver of
+    ``fast_sims.king`` (built on the CPU, as the other builders)."""
+    if trunc is not None and abs(float(trunc) - 1.0) > 1e-12:
+        warnings.warn("King trunc != 1 (generalised lowered isothermal) "
+                      "is not implemented; using the classic King (1966) "
+                      "model", stacklevel=2)
+    from ..fast_sims.king import make_king_potential
+
+    return make_king_potential(mass=mass, r_core=scaleRadius, W0=W0, G=G,
+                               device="cpu")

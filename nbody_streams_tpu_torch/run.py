@@ -4,7 +4,10 @@ Counterpart of ``nbody_streams_tpu/run.py``.  The loop runs chunks of KDK
 steps between event boundaries (snapshots, restarts, NaN checks); the
 state stays on the device and the host fetches it only at boundaries.
 Snapshot and restart files are the JAX package's formats (``nbody_io``),
-so a run started by either package resumes in the other.
+so a run started by either package resumes in the other.  Self-gravity is
+``DirectGravity`` or the solver a ``solver_factory`` builds (the SCF tier);
+an external field and a ``ForceExtra`` (the dynamical friction) add their
+terms.  Not ported: multi-device ``devices`` and ``profile_dir``.
 """
 from __future__ import annotations
 
@@ -113,6 +116,23 @@ def _resolve_device(architecture: str) -> torch.device:
     raise ValueError(f"Unknown architecture {architecture!r}")
 
 
+def run_copies(external_potential, force_extra, masses, device, dtype):
+    """The external field and the extra force as a run uses them: a torch
+    module field as a copy moved to ``device`` and ``dtype`` (the caller's
+    object is left as it is), a ``ForceExtra`` with a ``to(device, dtype)``
+    method (the dynamical friction) as the copy it returns, and a plain
+    ``fn(pos, vel, masses, t)`` wrapped in ``CallbackForceExtra``."""
+    if isinstance(external_potential, torch.nn.Module):
+        external_potential = copy.deepcopy(external_potential).to(
+            device=device, dtype=dtype)
+    fx = force_extra
+    if fx is not None and not isinstance(fx, ForceExtra):
+        fx = CallbackForceExtra(fx, masses)
+    elif callable(getattr(fx, "to", None)):
+        fx = fx.to(device=device, dtype=dtype)
+    return external_potential, fx
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -158,6 +178,7 @@ def run_nbody(
     nan_check: bool = True,
     step_timeout_s: float | None = None,
     profile_dir: str | None = None,
+    solver_factory=None,
     target_drift: float | None = None,
 ) -> np.ndarray:
     """Run a KDK leapfrog N-body integration; returns final (N, 6) float64.
@@ -176,7 +197,13 @@ def run_nbody(
       A torch module (every ``potentials`` class) runs as a copy moved to
       the run's device and state dtype; the caller's object is left as it
       is.  ``force_extra`` (a :class:`ForceExtra`, or a plain
-      ``fn(pos, vel, masses, t)`` on numpy arrays) is duck-typed too.
+      ``fn(pos, vel, masses, t)`` on numpy arrays) is duck-typed too; a
+      ``force_extra`` with a ``to(device, dtype)`` method (the dynamical
+      friction) runs as the copy that method returns.
+    * ``solver_factory``: ``(mass_arr, soft_arr, device=) -> solver``,
+      called with the resolved device in place of building
+      ``DirectGravity`` (how ``run_simulation(method='scf')`` installs the
+      SCF tier); ``impl``/``kernel``/``block_size`` then do not apply.
     * ``devices`` with more than one device, and ``profile_dir``, are not
       ported yet and raise ``NotImplementedError``.
     """
@@ -289,27 +316,25 @@ def run_nbody(
         snap_kwargs["mass_dark"] = np.asarray(masses, float)
         snap_kwargs["eps_dark"] = np.asarray(soft_arr, float)
 
-    if isinstance(external_potential, torch.nn.Module):
-        external_potential = copy.deepcopy(external_potential).to(
-            device=device, dtype=state_dtype)
+    external_potential, fx = run_copies(external_potential, force_extra,
+                                        masses, device, state_dtype)
 
-    solver = DirectGravity(
-        masses, soft_arr, G=G, kernel=kernel, precision=precision,
-        impl=impl, block_size=block_size, device=device,
-        target_drift=target_drift,
-    )
+    if solver_factory is not None:
+        solver = solver_factory(masses, soft_arr, device=device)
+    else:
+        solver = DirectGravity(
+            masses, soft_arr, G=G, kernel=kernel, precision=precision,
+            impl=impl, block_size=block_size, device=device,
+            target_drift=target_drift,
+        )
 
     if verbose:
         print("=" * 70)
         print(f"N-body integration  [{device.type}/{solver.impl}, "
-              f"{precision}, kernel={kernel}]")
+              f"{precision}, kernel={getattr(solver, 'kernel', kernel)}]")
         print(f"Particles: {n:,}  steps: {total_steps:,} "
               f"(start {start_step})  dt={dt:.3e}")
         print("=" * 70)
-
-    fx = force_extra
-    if fx is not None and not isinstance(fx, ForceExtra):
-        fx = CallbackForceExtra(fx, masses)
 
     accel_fn = make_accel_fn(solver, solver.mass, external_potential,
                              external_update_interval, fx)
@@ -319,7 +344,7 @@ def run_nbody(
     # slab-order reuse: the order is carried in the state and refreshed
     # every presort_every steps, not per force call
     presort = solver.spatial_sort_active
-    presort_every = solver.presort_interval
+    presort_every = getattr(solver, "presort_interval", None)
     state = init_state(
         xv[:, :3], xv[:, 3:], accel_fn, solver.mass, time_start,
         start_step=start_step, dt=dt, dtype=state_dtype, force_extra=fx,

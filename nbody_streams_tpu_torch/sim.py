@@ -1,18 +1,29 @@
 """Unified multi-species simulation entry point.
 
-Counterpart of ``nbody_streams_tpu/sim.py`` for ``method='direct'``: species
-validation and assembly, kwarg routing, then ``run_nbody`` (with an
-``external_potential``, e.g. from ``nbody_streams_tpu_torch.potentials``).
-The other methods and dynamical friction are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Counterpart of ``nbody_streams_tpu/sim.py``: species validation and
+assembly, kwarg routing, then ``run_nbody``.  Ported:
+
+* ``method='direct'``: O(N^2) direct summation through the CUDA kernels
+  (``ops/dispatch.DirectGravity``);
+* ``method='scf'``: the Hernquist-Ostriker expansion (``ops/scf.py``),
+  single-centre or one expansion per species group (``scf_groups``);
+* ``external_potential`` (e.g. from ``nbody_streams_tpu_torch.potentials``)
+  and ``dynamical_friction=True`` (``friction.py``, the ``df_*``
+  keywords).
+
+``method='tree'`` (the multi-device ring) is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 
 from .constants import G_DEFAULT
 from .run import run_nbody
 from .species import (
+    PerformanceWarning,
     Species,
     _build_particle_arrays,
     _emit_performance_warnings,
@@ -27,11 +38,20 @@ _DIRECT_KW = {
     "block_size", "nan_check", "step_timeout_s", "profile_dir",
     "target_drift",
 }
+_DF_KW = {
+    "df_M_sat", "df_coulomb_mode", "df_fixed_ln_lambda", "df_core_gamma",
+    "df_r_core", "df_update_interval", "df_sigma_method",
+    "df_apply_radius_factor", "df_shrink_n_iter", "df_shrink_frac",
+    "df_sigma_grid_r", "df_com_method", "df_bound_r_max",
+}
+_SCF_KW = {
+    "scf_nmax", "scf_lmax", "scf_mmax", "scf_a", "scf_symmetry",
+    "scf_center", "scf_groups",
+}
 
 _NOT_PORTED = {
     "tree": "method='tree' (the multi-device ring) is not ported yet "
             "(ROADMAP.md Queue 1 item 8)",
-    "scf": "method='scf' is not ported yet (ROADMAP.md Queue 1 item 7)",
 }
 
 
@@ -61,7 +81,11 @@ def run_simulation(
 
     The surface of ``nbody_streams_tpu.run_simulation``; here
     ``architecture`` is 'gpu' or 'auto' (a CUDA device; each raises without
-    one) or 'cpu', and ``method`` is 'direct'.
+    one) or 'cpu', and ``method`` is 'direct' or 'scf'.  Dynamical
+    friction takes the ``df_*`` keywords (``df_M_sat`` defaults to the
+    total mass) and needs ``external_potential``; the SCF tier takes the
+    ``scf_*`` keywords, ``scf_groups`` mapping species names (or slices)
+    to per-group options.
     """
     phase_space = np.asarray(phase_space, np.float64)
     if phase_space.ndim != 2 or phase_space.shape[1] != 6:
@@ -73,13 +97,9 @@ def run_simulation(
             f"{architecture!r}")
     if method in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[method])
-    if method != "direct":
+    if method not in ("direct", "scf"):
         raise ValueError(
             f"method must be 'direct', 'tree' or 'scf', got {method!r}")
-    if dynamical_friction:
-        raise NotImplementedError(
-            "dynamical friction is not ported yet (ROADMAP.md Queue 1 "
-            "item 6)")
 
     _validate_species(phase_space, species)
     mass_arr, soft_arr = _build_particle_arrays(species)
@@ -87,6 +107,11 @@ def run_simulation(
 
     kw = dict(kwargs)
     direct_kwargs = {k: kw.pop(k) for k in list(kw) if k in _DIRECT_KW}
+    df_kwargs = {k: kw.pop(k) for k in list(kw) if k in _DF_KW}
+    scf_kwargs = {k: kw.pop(k) for k in list(kw) if k in _SCF_KW}
+    if scf_kwargs and method != "scf":
+        raise TypeError(
+            f"scf_* kwargs given but method={method!r}: {sorted(scf_kwargs)}")
     for legacy in ("theta", "nleaf", "ncrit", "level_split", "nthreads"):
         if legacy in kw:
             kw.pop(legacy)
@@ -95,6 +120,27 @@ def run_simulation(
                       "is exact)")
     if kw:
         raise TypeError(f"Unknown keyword arguments: {sorted(kw)}")
+
+    force_extra = None
+    if dynamical_friction:
+        if external_potential is None:
+            raise ValueError(
+                "dynamical_friction=True requires external_potential")
+        from .friction import make_df_force_extra
+
+        m_sat = df_kwargs.pop("df_M_sat", float(mass_arr.sum()))
+        force_extra = make_df_force_extra(
+            external_potential, M_sat=m_sat, G=G, t_start=time_start,
+            t_end=time_end,
+            **{k.removeprefix("df_"): v for k, v in df_kwargs.items()})
+    elif df_kwargs:
+        raise TypeError(
+            f"df_* kwargs given but dynamical_friction=False: "
+            f"{sorted(df_kwargs)}")
+
+    if method == "scf":
+        direct_kwargs["solver_factory"] = _scf_factory(
+            phase_space, species, direct_kwargs, scf_kwargs, G)
 
     xv_final = run_nbody(
         phase_space,
@@ -116,6 +162,58 @@ def run_simulation(
         species=species,
         architecture=architecture,
         external_potential=external_potential,
+        force_extra=force_extra,
         **direct_kwargs,
     )
     return _split_by_species(xv_final, species)
+
+
+def _scf_factory(xv0, species, direct_kwargs, scf_kwargs, G):
+    """The ``solver_factory`` of ``method='scf'``: an ``SCFGravity``, or a
+    ``CompositeSCFGravity`` over ``scf_groups``, in float64 for
+    ``precision='float64'`` and float32 otherwise (``float32_kahan`` keeps
+    its compensated state)."""
+    from .ops.scf import CompositeSCFGravity, SCFGravity
+
+    precision = direct_kwargs.get("precision", "float32_kahan")
+    scf_prec = "float64" if precision == "float64" else "float32"
+    for bad in ("impl", "block_size", "kernel", "devices", "target_drift"):
+        if bad in direct_kwargs:
+            raise TypeError(f"{bad!r} has no effect with method='scf'")
+    if precision == "float32_fast":
+        warnings.warn(
+            "precision='float32_fast' only accelerates the direct pairwise "
+            "kernels; with method='scf' it runs as plain 'float32'",
+            PerformanceWarning, stacklevel=3)
+    opts = {k.removeprefix("scf_"): v for k, v in scf_kwargs.items()}
+    groups_spec = opts.pop("groups", None)
+    if groups_spec is None:
+        def factory(mass_arr, soft_arr, device):
+            return SCFGravity(mass_arr, soft_arr, G=G, precision=scf_prec,
+                              phase_space=xv0, device=device, **opts)
+
+        return factory
+
+    # species are contiguous: names map onto slices of the particle array
+    by_name, start = {}, 0
+    for s in species:
+        by_name[s.name] = slice(start, start + s.N)
+        start += s.N
+    items = (groups_spec.items() if isinstance(groups_spec, dict)
+             else groups_spec)
+    groups = []
+    for key, gopts in items:
+        if isinstance(key, str):
+            if key not in by_name:
+                raise ValueError(
+                    f"scf_groups references unknown species {key!r}; "
+                    f"have {sorted(by_name)}")
+            key = by_name[key]
+        groups.append((key, dict(gopts)))
+
+    def factory(mass_arr, soft_arr, device):
+        return CompositeSCFGravity(mass_arr, soft_arr, groups=groups, G=G,
+                                   precision=scf_prec, phase_space=xv0,
+                                   device=device, **opts)
+
+    return factory

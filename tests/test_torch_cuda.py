@@ -18,7 +18,10 @@ reading means work was deleted.  The external fields: float32 on the card
 against float64 on the CPU within chip_smoke.FIELD_TOL (four times the JAX
 package's own float32 error at the same points), with no host sync inside
 ``force`` and with TF32 allowed; the CylSpline fit's two-set potential
-kernel within 2e-6 of its plain version.
+kernel within 2e-6 of its plain version.  The defaults of the entry
+points land on the card; the SCF tier stays within chip_smoke.SCF_TOL of
+float64 with TF32 switched on; the friction term runs without a host
+sync, within chip_smoke.DF_TOL of float64.
 """
 import copy
 
@@ -88,10 +91,10 @@ def test_direct_tile_kernel_matches_plain(dev, kind):
         for kahan in (True, False):
             args = (tgt, src, kind, mode, kahan, 1e-15, mode == "pot")
             for splits in (None, 1, 2, 4):
-                before = cd.LAUNCHES["direct"]
+                before = cd.LAUNCHES["single"]
                 got = cd._direct_tile(*args, splits=splits)
                 torch.cuda.synchronize()
-                assert cd.LAUNCHES["direct"] == before + 1
+                assert cd.LAUNCHES["single"] == before + 1
                 want = cd._direct_tile_reference(*args,
                                                  splits=splits or own)
                 assert _rel(got, want) < (2e-6 if kahan else 1e-5)
@@ -122,11 +125,15 @@ def test_two_pass_kernels_match_plain(dev, mode):
     s_base = cd.split_count("direct", 65536, ns, _sms(dev), nb, cd.TN)
     s_band = cd.split_count("band", 65536, ns, _sms(dev), nb, cd.TN)
     assert s_base > 1 and s_band > 1
+    before = dict(cd.LAUNCHES)
     base = cd._direct_tile(tgt, src, "newtonian", mode, True, 1e-15, mask,
                            nb, start)
     band = cd._band(tgt, src, start, mode, True, 1e-15, mask, cd.TM, cd.TN,
                     nb)
     torch.cuda.synchronize()
+    # the base pass counts as "base", not as the single pass
+    assert cd.LAUNCHES == dict(before, base=before["base"] + 1,
+                               band=before["band"] + 1)
     assert _rel(base, cd._direct_tile_reference(
         tgt, src, "newtonian", mode, True, 1e-15, mask, nb, start,
         splits=s_base)) < 2e-6
@@ -375,10 +382,10 @@ def test_fit_two_set_kernel_matches_plain(dev):
     fit's own probe grid, and the tables vs the plain version's."""
     xv, m = make_plummer_sphere(8192, M_total=1e9, a=1.0, seed=4)
     pos = xv[:, :3]
-    before = cd.LAUNCHES["direct"]
+    before = cd.LAUNCHES["single"]
     on_card = fit.fit_cylspline_from_particles(pos, m, softening=H,
                                                device=dev)
-    assert cd.LAUNCHES["direct"] == before + 1
+    assert cd.LAUNCHES["single"] == before + 1
     plain = fit.fit_cylspline_from_particles(pos, m, softening=H,
                                              device="cpu")
     assert _rel(torch.tensor(on_card.phi), torch.tensor(plain.phi)) < 2e-6
@@ -412,3 +419,102 @@ def test_loaders_build_on_the_card(dev):
         assert all(b.is_cuda for b in pot.buffers())
         f = pot.force(x)
         assert f.is_cuda and f.dtype == torch.float64
+
+
+@pytest.mark.cuda
+def test_defaults_land_on_the_card(dev):
+    """DirectGravity, compute_forces_direct / compute_potential_direct of
+    numpy input, the SCF solvers and make_king_potential build and
+    evaluate on the card unless asked for the CPU, and from_jax_state
+    carries a state (its friction state too) onto the card."""
+    from nbody_streams_tpu_torch import compute_forces_direct as forces
+    from nbody_streams_tpu_torch import compute_potential_direct as pot
+    from nbody_streams_tpu_torch.fast_sims import make_king_potential
+    from nbody_streams_tpu_torch.integrate import from_jax_state
+    from nbody_streams_tpu_torch.ops.scf import (
+        CompositeSCFGravity, SCFGravity)
+
+    xv, m = make_plummer_sphere(512, M_total=1e9, a=1.0, seed=1)
+    solver = DirectGravity(m, np.full(512, H))
+    assert solver.device.type == "cuda" and solver.impl == "cuda"
+    assert solver.mass.is_cuda
+    for fn in (forces, pot):
+        assert fn(xv[:, :3], m, H).is_cuda
+        assert not fn(xv[:, :3], m, H, device="cpu").is_cuda
+    pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+    for s in (SCFGravity(m, a=1.0),
+              CompositeSCFGravity(m, groups=[(slice(0, 512), {"a": 1.0})])):
+        assert s.mass.is_cuda and s.accel(pos).is_cuda
+    king = make_king_potential(1e5, 0.01, W0=5.0)
+    assert all(b.is_cuda for b in king.buffers())
+    assert king.force(xv[:8, :3] * 0.01).is_cuda
+    arrays = {k: np.zeros((512, 3), np.float32) for k in
+              ("pos", "vel", "pos_c", "vel_c", "acc", "ext_acc")}
+    state = from_jax_state(dict(arrays, step=np.int32(0)),
+                           extra_state={"a_df": np.zeros(3), "t_prev": 0.0})
+    assert state.pos.is_cuda and state.extra_state["a_df"].is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["allow_tf32", "precision_high"])
+def test_scf_fp32_with_tf32_on(dev, how):
+    """With TF32 switched on globally the SCF contractions stay IEEE fp32:
+    float32 within chip_smoke.SCF_TOL of float64 (TF32 would put the
+    potential ~6e-4 off), and the caller's setting comes back."""
+    from nbody_streams_tpu_torch.ops.scf import SCFGravity
+
+    xv, m = make_plummer_sphere(65536, M_total=1e9, a=1.0, seed=7)
+    p64 = torch.tensor(xv[:, :3], device=dev)
+    s64 = SCFGravity(m, a=1.0, precision="float64")
+    want = (s64.accel(p64), s64.potential(p64))
+    s32 = SCFGravity(m, a=1.0)
+    before = torch.get_float32_matmul_precision()
+    try:
+        if how == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("high")
+        got = (s32.accel(p64.float()), s32.potential(p64.float()))
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(before)
+        torch.backends.cuda.matmul.allow_tf32 = before != "highest"
+    for g, w, tol in zip(got, want, chip_smoke.SCF_TOL):
+        assert _rel(g, w) < tol
+
+
+@pytest.mark.cuda
+def test_friction_on_the_card_matches_fp64_without_sync(dev):
+    """The bound_phi friction term on the card in float32, under
+    torch.cuda.set_sync_debug_mode('error'), against float64 on the CPU
+    within chip_smoke.DF_TOL (the Plummer self-potential as phi)."""
+    from nbody_streams_tpu_torch.friction import make_df_force_extra
+    from nbody_streams_tpu_torch.potentials import NFWPotential
+
+    xv, m = make_plummer_sphere(65536, M_total=5e9, a=0.5, seed=4)
+    r = np.linalg.norm(xv[:, :3], axis=1)
+    phi = -G * 5e9 / np.sqrt(r ** 2 + 0.25)
+    xv[:, 0] += 40.0
+    xv[:, 4] += 120.0
+    host = NFWPotential(mass=1e12, scaleRadius=20.0)
+    kw = dict(M_sat=5e9, update_interval=10, com_method="bound_phi",
+              t_start=0.0, t_end=1.5)
+    out = {}
+    for where, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        fx = make_df_force_extra(host, **kw).to(where, dtype)
+        p, v, mm, ph = (torch.tensor(a, dtype=dtype, device=where)
+                        for a in (xv[:, :3], xv[:, 3:], m, phi))
+        st = fx.init_state(p, v, mm, 0.2)
+        if where == dev:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out[dtype] = fx(st, p, v, mm, 0.202, phi=ph, step=10)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    acc32, st32 = out[torch.float32]
+    acc64, st64 = out[torch.float64]
+    assert acc32.is_cuda and acc32.dtype == torch.float32
+    a32, a64 = st32["a_df"].double().cpu(), st64["a_df"]
+    assert float((a32 - a64).norm() / a64.norm()) < chip_smoke.DF_TOL
+    assert torch.equal(st32["bound"].cpu(), st64["bound"])

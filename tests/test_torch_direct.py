@@ -523,33 +523,50 @@ def test_geometry_and_operands_are_checked(cluster):
 def test_direct_gravity_impls_and_tiers():
     n = 64
     m, h = np.full(n, 1e5), np.full(n, 0.05)
-    assert DirectGravity(m, h).impl == "torch"            # auto on the CPU
-    assert DirectGravity(m, h, impl="cuda").impl == "cuda"
-    assert DirectGravity(m, h, impl="cuda", precision="float64").impl \
-        == "torch"
+    cpu = dict(device="cpu")
+    assert DirectGravity(m, h, **cpu).impl == "torch"     # auto on the CPU
+    assert DirectGravity(m, h, impl="cuda", **cpu).impl == "cuda"
+    assert DirectGravity(m, h, impl="cuda", precision="float64",
+                         **cpu).impl == "torch"
     for impl in ("xla", "sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DirectGravity(m, h, impl=impl)
+            DirectGravity(m, h, impl=impl, **cpu)
     with pytest.raises(ValueError, match="impl"):
-        DirectGravity(m, h, impl="pallas")
+        DirectGravity(m, h, impl="pallas", **cpu)
     with pytest.warns(PerformanceWarning, match="float32_fast"):
-        fast = DirectGravity(m, h, precision="float32_fast")
+        fast = DirectGravity(m, h, precision="float32_fast", **cpu)
     assert fast.dtype == torch.float32 and not fast.kahan
-    assert DirectGravity(m, h, target_drift=1e-8).target_drift == 1e-8
+    assert DirectGravity(m, h, target_drift=1e-8,
+                         **cpu).target_drift == 1e-8
     with pytest.raises(ValueError, match="target_drift"):
-        DirectGravity(m, h, target_drift=0.0)
+        DirectGravity(m, h, target_drift=0.0, **cpu)
+
+
+def test_direct_gravity_default_device_is_the_card():
+    """With no device= the solver is built on the card: without one it
+    raises, naming the CPU option; device='cpu' runs the torch oracle."""
+    m, h = np.full(64, 1e5), np.full(64, 0.05)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DirectGravity(m, h)
+    solver = DirectGravity(m, h, device="cpu")
+    assert solver.device.type == "cpu" and solver.impl == "torch"
 
 
 def test_direct_gravity_sorted_path_properties():
-    big = DirectGravity(np.full(16384, 1.0), 0.05, impl="cuda")
+    big = DirectGravity(np.full(16384, 1.0), 0.05, impl="cuda",
+                        device="cpu")
     assert big.spatial_sort_active and big.presort_interval == 1
     pos = torch.tensor(np.random.default_rng(0).normal(size=(16384, 3)),
                        dtype=torch.float32)
     assert torch.equal(big.sort_key(pos), torch.argsort(pos[:, 0],
                                                         stable=True))
-    small = DirectGravity(np.full(512, 1.0), 0.05, impl="cuda")
+    small = DirectGravity(np.full(512, 1.0), 0.05, impl="cuda",
+                          device="cpu")
     assert not small.spatial_sort_active and small.presort_interval is None
-    oracle = DirectGravity(np.full(16384, 1.0), 0.05, impl="torch")
+    oracle = DirectGravity(np.full(16384, 1.0), 0.05, impl="torch",
+                           device="cpu")
     assert not oracle.spatial_sort_active
     with pytest.raises(ValueError, match="pos shape"):
         small.accel(torch.zeros(10, 3))
@@ -559,6 +576,8 @@ def test_direct_gravity_sorted_path_properties():
 def test_direct_gravity_cuda_impl_matches_torch_impl(cluster, mode):
     pos, gm, soft = cluster
     m = gm / G
-    a = getattr(DirectGravity(m, soft, G=G, impl="cuda"), mode)(_t(pos))
-    b = getattr(DirectGravity(m, soft, G=G, impl="torch"), mode)(_t(pos))
+    a = getattr(DirectGravity(m, soft, G=G, impl="cuda", device="cpu"),
+                mode)(_t(pos))
+    b = getattr(DirectGravity(m, soft, G=G, impl="torch", device="cpu"),
+                mode)(_t(pos))
     assert _rel(a, b) < TOL

@@ -178,12 +178,15 @@ def test_galpot_builders_match_jax(pts):
                                            sersicIndex=2.0, gridSizeR=24)),
                      ("build_disk", dict(mass=3e10, scaleRadius=2.5,
                                          scaleHeight=-0.2, lmax=8,
-                                         gridSizeR=24, n_theta=64))):
+                                         gridSizeR=24, n_theta=64)),
+                     ("build_king", dict(mass=1e5, scaleRadius=0.01,
+                                         W0=5.0))):
         _assert_parity(getattr(tg, name)(**kw), getattr(jg, name)(**kw),
                        pts[:32])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.make_potential(type="King", mass=1e5, scaleRadius=0.01, W0=5,
-                         device="cpu")
+    king = T.make_potential(type="King", mass=1e5, scaleRadius=0.01, W0=5,
+                            device="cpu")
+    _assert_parity(king, jg.build_king(mass=1e5, scaleRadius=0.01, W0=5.0),
+                   pts[:32])
 
 
 @pytest.fixture(scope="module")

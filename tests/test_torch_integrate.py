@@ -54,9 +54,10 @@ def jax_run():
 @pytest.mark.parametrize("impl", ["cuda", "torch"])
 def test_kdk_steps_match_jax_from_one_state(jax_run, impl):
     arrays, s8, mass, _ = jax_run
-    state = ti.from_jax_state(arrays, "cpu")
+    state = ti.from_jax_state(arrays, device="cpu")
     assert state.pos.dtype == torch.float32 and state.sort_order is None
-    solver = DirectGravity(mass, np.full(mass.shape[0], 0.05), impl=impl)
+    solver = DirectGravity(mass, np.full(mass.shape[0], 0.05), impl=impl,
+                           device="cpu")
     step_fn = ti.make_kdk_step(ti.make_accel_fn(solver, solver.mass), DT,
                                0.0)
     out = ti.run_chunk(step_fn, state, 8)
@@ -67,10 +68,11 @@ def test_kdk_steps_match_jax_from_one_state(jax_run, impl):
 
 def test_system_energy_matches_jax(jax_run):
     arrays, s8, mass, (ke, pe) = jax_run
-    solver = DirectGravity(mass, np.full(mass.shape[0], 0.05), impl="cuda")
+    solver = DirectGravity(mass, np.full(mass.shape[0], 0.05), impl="cuda",
+                           device="cpu")
     state = ti.from_jax_state({k: np.asarray(getattr(s8, k)) for k in
                                ("pos", "vel", "pos_c", "vel_c", "acc",
-                                "ext_acc", "step")}, "cpu")
+                                "ext_acc", "step")}, device="cpu")
     got = ti.system_energy(state, solver, solver.mass)
     assert abs(float(got[0]) - ke) < 1e-6 * abs(ke)
     assert abs(float(got[1]) - pe) < 1e-6 * abs(pe)
@@ -78,15 +80,27 @@ def test_system_energy_matches_jax(jax_run):
 
 def test_state_round_trip(jax_run):
     arrays, *_ = jax_run
-    back = ti.to_numpy_state(ti.from_jax_state(arrays))
+    back = ti.to_numpy_state(ti.from_jax_state(arrays, device="cpu"))
     for k in ("pos", "vel", "pos_c", "vel_c", "acc", "ext_acc"):
         np.testing.assert_array_equal(back[k], arrays[k])
     assert int(back["step"]) == int(arrays["step"])
     assert back["sort_order"] is None
     order = np.random.default_rng(0).permutation(256).astype(np.int32)
-    with_order = ti.from_jax_state(dict(arrays, sort_order=order))
+    with_order = ti.from_jax_state(dict(arrays, sort_order=order),
+                                   device="cpu")
     np.testing.assert_array_equal(
         ti.to_numpy_state(with_order)["sort_order"], order)
+
+
+def test_from_jax_state_default_device_is_the_card(jax_run):
+    """With no device= the state is carried onto the card: without one it
+    raises, naming the CPU option."""
+    arrays, *_ = jax_run
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ti.from_jax_state(arrays)
+    assert ti.from_jax_state(arrays, device="cpu").pos.device.type == "cpu"
 
 
 class _SortedCuda(DirectGravity):
@@ -109,7 +123,7 @@ def test_presort_per_chunk_matches_sort_per_call():
     n = 3072
     pos = rng.normal(0, 1, (n, 3))
     vel = rng.normal(0, 10.0, (n, 3))
-    solver = _SortedCuda(np.full(n, 1e9 / n), np.full(n, 0.02))
+    solver = _SortedCuda(np.full(n, 1e9 / n), np.full(n, 0.02), device="cpu")
     accel_fn = ti.make_accel_fn(solver, solver.mass)
     step_fn = ti.make_kdk_step(accel_fn, DT, 0.0)
     before = dict(cd.BRANCHES)
@@ -128,7 +142,8 @@ def test_presort_per_chunk_matches_sort_per_call():
 
 def test_run_chunk_refreshes_order_every_k_steps():
     n = 64
-    solver = DirectGravity(np.full(n, 1.0), 0.05, impl="torch")
+    solver = DirectGravity(np.full(n, 1.0), 0.05, impl="torch",
+                           device="cpu")
     seen = []
     base = ti.make_kdk_step(ti.make_accel_fn(solver, solver.mass), DT, 0.0)
 
@@ -149,7 +164,8 @@ def test_external_and_extra_hooks_are_added():
     """The duck-typed external potential (refreshed every k steps) and
     force_extra terms add to self gravity."""
     n = 32
-    solver = DirectGravity(np.full(n, 1.0), 0.05, impl="torch")
+    solver = DirectGravity(np.full(n, 1.0), 0.05, impl="torch",
+                           device="cpu")
     calls = []
 
     class Uniform:

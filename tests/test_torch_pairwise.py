@@ -41,7 +41,8 @@ def test_forces_fp64_match_jax(cluster, kind):
     want = jp.compute_forces_direct(pos, mass, soft, G=G, kernel=kind,
                                     precision="float64", block_size=128)
     got = tp.compute_forces_direct(pos, mass, soft, G=G, kernel=kind,
-                                   precision="float64", block_size=128)
+                                   precision="float64", block_size=128,
+                                   device="cpu")
     assert got.dtype == torch.float64 and got.shape == (300, 3)
     assert _max_err(got, want) < 1e-12
 
@@ -52,7 +53,8 @@ def test_potential_fp64_match_jax(cluster, kind):
     want = jp.compute_potential_direct(pos, mass, soft, G=G, kernel=kind,
                                        precision="float64", block_size=128)
     got = tp.compute_potential_direct(pos, mass, soft, G=G, kernel=kind,
-                                      precision="float64", block_size=128)
+                                      precision="float64", block_size=128,
+                                      device="cpu")
     assert got.shape == (300,)
     assert _max_err(got, want) < 1e-12
 
@@ -65,7 +67,7 @@ def test_kahan_fp32_within_3e6_of_fp64(cluster, mode):
                   (tp.compute_potential_direct, jp.compute_potential_direct))
     want = fn_j(pos, mass, soft, G=G, kernel="spline", precision="float64")
     got = fn_t(pos, mass, soft, G=G, kernel="spline",
-               precision="float32_kahan", block_size=64)
+               precision="float32_kahan", block_size=64, device="cpu")
     assert got.dtype == torch.float32
     assert _max_err(got, want) < 3e-6
 
@@ -88,9 +90,24 @@ def test_tiles_and_kahan_add_match_jax(cluster):
 
 def test_scalar_mass_and_softening_broadcast(cluster):
     pos, _, _ = cluster
-    a = tp.compute_forces_direct(pos, 1e5, 0.1, precision="float64")
+    a = tp.compute_forces_direct(pos, 1e5, 0.1, precision="float64",
+                                 device="cpu")
     b = tp.compute_forces_direct(pos, np.full(300, 1e5), np.full(300, 0.1),
-                                 precision="float64")
+                                 precision="float64", device="cpu")
     np.testing.assert_array_equal(a.numpy(), b.numpy())
     with pytest.raises(ValueError, match="pos must be"):
-        tp.compute_forces_direct(pos[:, :2], 1.0)
+        tp.compute_forces_direct(pos[:, :2], 1.0, device="cpu")
+
+
+def test_numpy_input_goes_to_the_card_by_default(cluster):
+    """Numpy input runs on the card unless device= says otherwise: without
+    a card the default raises, naming the CPU option.  A tensor keeps its
+    own device."""
+    pos, mass, soft = cluster
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for fn in (tp.compute_forces_direct, tp.compute_potential_direct):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(pos, mass, soft)
+        got = fn(torch.tensor(pos), mass, soft, precision="float64")
+        assert got.device.type == "cpu"

@@ -235,7 +235,7 @@ def test_tile_config_reaches_the_sorted_path(sorted_case, monkeypatch):
 
     monkeypatch.setattr(cd, "_self_sorted", spy)
     solver = DirectGravity(gm / G, soft, G=G, impl="cuda",
-                           tile_config={"tm": 64, "tn": 128})
+                           tile_config={"tm": 64, "tn": 128}, device="cpu")
     assert solver.spatial_sort_active
     before = dict(cd.BRANCHES)
     got = solver.accel(torch.tensor(pos))
@@ -254,25 +254,29 @@ def test_tile_config_reaches_the_sorted_path(sorted_case, monkeypatch):
 ])
 def test_tile_config_tpu_keys_warn(tile, match):
     with pytest.warns(PerformanceWarning, match=match):
-        DirectGravity(np.full(64, 1.0), 0.05, impl="cuda", tile_config=tile)
+        DirectGravity(np.full(64, 1.0), 0.05, impl="cuda", tile_config=tile,
+                      device="cpu")
 
 
 def test_tile_config_is_checked():
     with pytest.raises(ValueError, match="unknown tile_config keys"):
-        DirectGravity(np.full(64, 1.0), 0.05, tile_config={"bs": 4})
+        DirectGravity(np.full(64, 1.0), 0.05, tile_config={"bs": 4},
+                      device="cpu")
     with pytest.raises(ValueError, match="multiples"):
-        DirectGravity(np.full(64, 1.0), 0.05, tile_config={"tm": 100})
+        DirectGravity(np.full(64, 1.0), 0.05, tile_config={"tm": 100},
+                      device="cpu")
 
 
 def test_tile_config_off_the_sorted_path_warns():
     rng = np.random.default_rng(2)
     solver = DirectGravity(np.full(256, 1e5), 0.05, impl="cuda",
-                           kernel="plummer", tile_config={"tn": 128})
+                           kernel="plummer", tile_config={"tn": 128},
+                           device="cpu")
     pos = torch.tensor(rng.normal(size=(256, 3)), dtype=torch.float32)
     with pytest.warns(PerformanceWarning, match="slab-sorted"):
         got = solver.accel(pos)
     plain = DirectGravity(np.full(256, 1e5), 0.05, impl="cuda",
-                          kernel="plummer").accel(pos)
+                          kernel="plummer", device="cpu").accel(pos)
     assert torch.equal(got, plain)
 
 

@@ -139,26 +139,33 @@ def test_jax_restart_resumes_in_port(case, jax_final, tmp_path):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, nbody_streams_tpu_torch; "
+    mods = ("nbody_streams_tpu_torch, nbody_streams_tpu_torch.potentials, "
+            "nbody_streams_tpu_torch.friction, nbody_streams_tpu_torch.df, "
+            "nbody_streams_tpu_torch.ops.scf, "
+            "nbody_streams_tpu_torch.fast_sims, "
+            "nbody_streams_tpu_torch.benchmarks.scf")
+    code = (f"import sys, {mods}; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nbody_streams_tpu' not in sys.modules")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
-    code = code.replace("nbody_streams_tpu_torch;",
-                        "nbody_streams_tpu_torch.potentials;")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
 def test_not_ported_options_raise(case, tmp_path):
+    """The tree method and the sharded impl still raise, naming their
+    ROADMAP item; the SCF tier and dynamical friction now run."""
     xv, species = case
     run = lambda **kw: tst.run_simulation(   # noqa: E731
-        xv, species, 0.0, DT, DT, output_dir=str(tmp_path), verbose=False,
-        **kw)
+        xv, species, 0.0, 2 * DT, DT, output_dir=str(tmp_path),
+        verbose=False, save_snapshots=False, **kw)
     for kw, item in ((dict(method="tree"), "item 8"),
-                     (dict(method="scf"), "item 7"),
-                     (dict(dynamical_friction=True), "item 6"),
                      (dict(impl="sharded"), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             run(architecture="cpu", **kw)
+    for kw in (dict(method="scf", scf_a=1.0),
+               dict(dynamical_friction=True,
+                    external_potential=_fields(tst)["mw22"]())):
+        got = run(architecture="cpu", overwrite=True, **kw)["dark"]
+        assert got.shape == (N, 6) and np.isfinite(got).all()
     with pytest.raises(NotImplementedError, match="profile_dir"):
         run(architecture="cpu", profile_dir=str(tmp_path))
     with pytest.raises(ValueError, match="architecture"):
