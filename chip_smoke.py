@@ -61,6 +61,15 @@ dynamical friction, the SCF tier and the samplers.  Phases:
       two-centre case; sample_quasispherical (65,536, then 0.25 t_dyn on
       the card, median radius within 8%), sample_disk (1M in
       McMillan17), make_king_potential on the card vs the CPU
+  (l) the potential forms of the direct kernels: two-set (nt != ns, nt
+      not a multiple of 64) for every law, mask off and on, at S = 1 and
+      the wrapper's S, vs their plain versions; the self-masked potential
+      with a quarter of the particles at h = 0 (single pass, every law;
+      sorted two-pass) vs the fp64 oracle; times by CUDA events of the
+      fit's two-set kernel (20,000 x 65,536), the self spline potential
+      at the DF satellite (single pass), the sorted path's potential base
+      and band passes and rows 1 and 3 at the bench case; slots a pair and
+      registers of those forms from the SASS
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card, and
@@ -69,13 +78,17 @@ the launches of each run path of phases (d), (i), (j) and (k) under
 ``launches_by_path``, counted by kernel form (the base pass, the single
 pass, the band pass) where the wrapper launches it, and in phase (g)'s
 measurement path for the roofline kernels; max error and times from
-(b)/(g)/(i)/(k), each kernel's bound
-(the larger of its operations over the card's peak and its bytes over
-the memory rate) and, for the force kernels, S.
+(b)/(g)/(k)/(l) (tile_sol at full occupancy, the shape where it bounds
+the base pass), each kernel's bound (the largest of its FP32 operations
+over the card's FP32 peak, its rsqrts over its MUFU rate and its bytes
+over the memory rate; ``bound_pipe`` says which, ``fp32_share`` is the
+share of the FP32 bound alone), slots a pair from the SASS where read
+and, for the force kernels, S.
 Exits nonzero, and prints no result, without a CUDA device.
 """
 import argparse
 import copy
+import functools
 import json
 import shutil
 import subprocess
@@ -112,9 +125,13 @@ PEAK_BYTES = 3.35e12
 # (r, newton, h^-3, q, q^2, 5 inner, 9 outer, 2 compares, 2 selects)
 # Plummer: the Newtonian 19, the pair max of h^2 and its add into r^2
 PAIR_FLOPS = {"newtonian": 19, "spline": 43, "plummer": 21}
-# Plummer potential: 3 subtracts, 6 for r^2 + eps2, the pair max of h^2,
-# the add of h^2, 1 rsqrt, the multiply by G m and the add into the sum
-POT_FLOPS = {"plummer": 14}
+# The potential forms.  Newtonian: 3 subtracts, 6 for r^2 + eps2, 1 rsqrt,
+# the multiply by G m and the add into the sum (one FFMA); Plummer: the
+# same and the pair max of h^2 and its add; spline: the Newtonian 12, the
+# pair min of 1/h and 25 in pot_pre<SPLINE> (r, q, q^2, 7 inner, 11 outer,
+# 2 compares, 2 selects)
+POT_FLOPS = {"newtonian": 12, "plummer": 14, "spline": 38}
+G = 4.300917270069976e-06
 # the satellite's orbit in the static field (examples/stream_nbody.py) and
 # its Sgr-like present-day phase in the MW+LMC field
 # (examples/mw_lmc_stream.py), started at t = -1 (a table node)
@@ -189,12 +206,34 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(ops, nbytes, peak=PEAK_FP32):
-    """(ms, what sets it): the larger of ops over ``peak`` and bytes over
-    the memory rate."""
-    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+def bound(flops, nbytes, rsqrts, mufu_per_s):
+    """The least time the card could take for a kernel's work: the largest
+    of its FP32 operations over PEAK_FP32, its rsqrts over the card's MUFU
+    rate and its bytes over PEAK_BYTES.  A dict of ``bound_ms``,
+    ``bound_by`` ('operations' or 'bytes'), ``bound_pipe`` (which of
+    'fp32', 'mufu' and 'bytes' sets it) and ``fp32_bound_ms``, the FP32
+    time alone."""
+    times = {"fp32": flops / PEAK_FP32, "mufu": rsqrts / mufu_per_s,
+             "bytes": nbytes / PEAK_BYTES}
+    pipe = max(times, key=times.get)
+    return {"bound_ms": times[pipe] * 1e3,
+            "bound_by": "bytes" if pipe == "bytes" else "operations",
+            "bound_pipe": pipe, "fp32_bound_ms": times["fp32"] * 1e3}
+
+
+@functools.cache
+def mufu_rate(dev):
+    """The card's MUFU rsqrt results a second (probe.card_peaks)."""
+    from nbody_streams_tpu_torch.ops import probe
+
+    return probe.card_peaks(dev)["mufu_per_s"]
+
+
+def describe(b, ms):
+    """A kernel's bound (``bound``) and its shares, for the log."""
+    return (f"bound {b['bound_ms']:.4f} ms ({b['bound_pipe']}), "
+            f"{b['bound_ms'] / ms:.4f} of bound, {b['fp32_bound_ms'] / ms:.4f}"
+            f" of the FP32 bound {b['fp32_bound_ms']:.4f} ms")
 
 
 def nbytes(*tensors):
@@ -206,6 +245,26 @@ def plummer_case(n, seed):
 
     xv, m = make_plummer_sphere(n, M_total=1e9, a=1.0, seed=seed)
     return xv, m
+
+
+def sorted_operands(xv, m, dev):
+    """The sorted path's operands for equal masses m and h = H, as
+    ``cuda_direct._self_sorted`` builds them: x-sorted targets and sources
+    (spline), the band's start rows, its width nb, the source rows and the
+    widest band window (the two-pass branch runs where it is <= nb)."""
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    n = len(m)
+    pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+    ps = pos[cd.slab_sort_key(pos)]
+    gs = torch.full((n,), m[0] * G, dtype=torch.float32, device=dev)
+    hs = torch.full((n,), H, dtype=torch.float32, device=dev)
+    hinv = cd._soft_pre("spline", hs)
+    first, max_width, rows = cd.band_window(ps[:, 0], hs.max())
+    nb = cd.band_rows(rows)
+    start = first.clamp(0, rows - nb).to(torch.int32).contiguous()
+    return (cd._targets(ps, hinv), cd._sources(ps, gs, hinv, cd.TN), start,
+            nb, rows, int(max_width))
 
 
 def phase_a(log_dir):
@@ -282,19 +341,10 @@ def phase_b(dev):
 
     # skip_band base pass + band pass at the bench case's shapes
     xv, m = plummer_case(N_BENCH, 2)
-    pos64 = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
-    order = cd.slab_sort_key(pos64)
-    ps = pos64[order]
-    gs = torch.full((N_BENCH,), m[0] * 4.300917270069976e-06,
-                    dtype=torch.float32, device=dev)
-    hs = torch.full((N_BENCH,), H, dtype=torch.float32, device=dev)
-    hinv = cd._soft_pre("spline", hs)
-    first, max_width, rows = cd.band_window(ps[:, 0], hs.max())
-    nb = cd.band_rows(rows)
-    check(int(max_width) <= nb, f"bench case window {int(max_width)} > {nb}")
-    start = first.clamp(0, rows - nb).to(torch.int32).contiguous()
-    tgt, src = cd._targets(ps, hinv), cd._sources(ps, gs, hinv, cd.TN)
+    tgt, src, start, nb, rows, max_width = sorted_operands(xv, m, dev)
+    check(max_width <= nb, f"bench case window {max_width} > {nb}")
     ns = src.shape[1]
+    mufu = mufu_rate(dev)
     stats = {}
     for name, kind, pairs, fn, ref in (
             ("direct", "newtonian", N_BENCH * (ns - nb * cd.TN),
@@ -319,27 +369,24 @@ def phase_b(dev):
         check(rel < 2e-6, f"{name} at N={N_BENCH}: {rel:.2e} >= 2e-6")
         ms = cuda_ms(fn, 20)
         plain_ms = cuda_ms(lambda: ref(splits), 3)
-        bound_ms, bound_by = bound(pairs * PAIR_FLOPS[kind],
-                                   nbytes(tgt, src, start, got))
+        b = bound(pairs * PAIR_FLOPS[kind], nbytes(tgt, src, start, got),
+                  pairs, mufu)
         stats[name] = dict(max_abs_err=absolute, rel=rel, ms=ms,
-                           plain_ms=plain_ms, splits=splits,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                           plain_ms=plain_ms, splits=splits, **b)
         log(f"(b) {name} kernel at N={N_BENCH} (nb={nb} of {rows} rows), "
             f"S={splits}, grid {N_BENCH // cd.BLOCK} x {splits} = "
             f"{N_BENCH // cd.BLOCK * splits} blocks: rel err {rel:.2e} "
             f"(tol 2e-6), {ms:.3f} ms vs plain {plain_ms:.3f} ms; "
-            f"{pairs / (ms * 1e-3):.6e} pairs/s; bound {bound_ms:.4f} ms "
-            f"({bound_by}: {PAIR_FLOPS[kind]} FP32 ops a pair at "
-            f"{PEAK_FP32 / 1e12:g} TFLOP/s), {bound_ms / ms:.4f} of bound")
+            f"{pairs / (ms * 1e-3):.6e} pairs/s; {describe(b, ms)}")
     single = cd.split_count("direct", N_BENCH, ns, sms)
     for mode in ("acc", "pot"):
         # the single-pass spline (the fallback branch) at the same shapes
         ms = cuda_ms(lambda: cd._direct_tile(
             tgt, src, "spline", mode, True, 1e-15, mode == "pot"), 5)
-        bound_ms, _ = bound(N_BENCH * ns * PAIR_FLOPS["spline"], 0)
+        flops = (PAIR_FLOPS if mode == "acc" else POT_FLOPS)["spline"]
+        b = bound(N_BENCH * ns * flops, 0, N_BENCH * ns, mufu)
         log(f"(b) single-pass spline {mode} at N={N_BENCH}, S={single}: "
-            f"{ms:.3f} ms" + (f", {bound_ms / ms:.4f} of its bound "
-                              f"{bound_ms:.4f} ms" if mode == "acc" else ""))
+            f"{ms:.3f} ms, {describe(b, ms)}")
     stats["operands"] = (tgt, src, start, nb)
 
     # kernels vs the fp64 oracle at N = 16,384 (sorted two-pass path).
@@ -349,7 +396,6 @@ def phase_b(dev):
     p = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
     mt = torch.tensor(m, dtype=torch.float32, device=dev)
     ht = torch.full((n,), H, dtype=torch.float32, device=dev)
-    G = 4.300917270069976e-06
     before = dict(cd.BRANCHES)
     acc = cd.cuda_accel(p, mt, ht, G, "spline", True)
     phi = cd.cuda_potential(p, mt, ht, G, "spline", True)
@@ -524,16 +570,15 @@ def phase_g(dev, base):
             check(rel < 1e-5, f"{name} K={K}: {rel:.2e} >= 1e-5")
             if name not in stats:
                 links = x.numel() * K * passes
-                # fma: 2 FP32 ops a link; rsqrt: one MUFU rsqrt (and an
-                # add) a link, bound by the MUFU peak
-                ops, peak = ((2 * links, PEAK_FP32) if name == "fma_chain"
-                             else (links, probe.card_peaks(dev)["mufu_per_s"]))
-                bound_ms, bound_by = bound(ops, 2 * nbytes(x), peak)
+                # fma: 2 FP32 ops a link; rsqrt: one MUFU rsqrt and an
+                # add a link
+                flops, rsqrts = ((2 * links, 0) if name == "fma_chain"
+                                 else (links, links))
                 stats[name] = dict(
                     max_abs_err=absolute, rel=rel,
                     ms=cuda_ms(lambda: fn(x, K, passes), 10),
                     plain_ms=cuda_ms(lambda: ref(x, K, passes), 1),
-                    bound_ms=bound_ms, bound_by=bound_by)
+                    **bound(flops, 2 * nbytes(x), rsqrts, mufu_rate(dev)))
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
                                              absolute)
             log(f"(g) {name}_kernel on (512, 512), K={K}, {passes} passes: "
@@ -559,12 +604,7 @@ def phase_g(dev, base):
         check(rel < 2e-6, f"tile_sol {kind}: {rel:.2e} >= 2e-6")
         ms, plain_ms = cuda_ms(sol, 10), cuda_ms(plain, 1)
         if kind == "newtonian":
-            bound_ms, bound_by = bound(
-                blocks * 64 * 64 * SOL_CHECK_REPS * PAIR_FLOPS[kind],
-                nbytes(tgt, src, got))
-            stats["tile_sol"] = dict(max_abs_err=absolute, rel=rel, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by)
+            stats["tile_sol"] = dict(max_abs_err=absolute, rel=rel)
         log(f"(g) tile_sol_kernel<{kind}> at {blocks} blocks, "
             f"{SOL_CHECK_REPS} reps: rel err {rel:.2e} (tol 2e-6), "
             f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
@@ -605,6 +645,23 @@ def phase_g(dev, base):
         log(f"(g) {what}: {rate:.6e}/s = {rate / peak:.4f} of peak")
     log(f"(g) capacity probe: plain torch chain {torch_tops:.5f} Top/s, "
         f"fma_chain_kernel {cuda_tops:.4f} Top/s")
+    # the kernels line's tile_sol: newtonian at full occupancy, the shape
+    # where it bounds the base pass, with its plain version and its bound
+    # at that shape (the error is the check's above)
+    full = sols[("newtonian", "full")]
+    sol_t, sol_s = tile_sweep.sol_operands("newtonian", full["blocks"] * 64,
+                                           64 * 64, dev)
+    pairs = full["blocks"] * 64 * 64 * SOL_REPS
+    plain_ms = cuda_ms(lambda: rl._tile_sol_reference(
+        sol_t, sol_s, "newtonian", full["blocks"], SOL_REPS), 1)
+    b = bound(pairs * PAIR_FLOPS["newtonian"],
+              nbytes(sol_t, sol_s) + full["blocks"] * 64 * 3 * 4, pairs,
+              mufu)
+    stats["tile_sol"].update(ms=full["ms"], plain_ms=plain_ms,
+                             blocks=full["blocks"], reps=SOL_REPS, **b)
+    log(f"(g) tile_sol_kernel<newtonian> at full occupancy "
+        f"({full['blocks']} blocks, {SOL_REPS} reps): {full['ms']:.3f} ms "
+        f"vs plain {plain_ms:.3f} ms; {describe(b, full['ms'])}")
 
     # base and band passes (phase b) as fractions of the speed of light
     nt, ns = tgt.shape[1], src.shape[1]
@@ -900,18 +957,17 @@ def phase_i(dev, bench_ms):
     check(rel < 2e-6, f"fit kernel vs plain: {rel:.2e} >= 2e-6")
     ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 1)
     pairs = tgt.shape[1] * N_BENCH
-    bound_ms, bound_by = bound(pairs * POT_FLOPS[kind],
-                               nbytes(tgt, src, got))
+    b = bound(pairs * POT_FLOPS[kind], nbytes(tgt, src, got), pairs,
+              mufu_rate(dev))
     stats["fit"] = dict(max_abs_err=absolute, rel=rel, ms=ms,
-                        plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, splits=splits, s=fit_s,
-                        launches=fit_launches)
+                        plain_ms=plain_ms, splits=splits, s=fit_s,
+                        launches=fit_launches, **b)
     log(f"(i) fit_cylspline_from_particles: {fit_s:.2f} s, "
         f"{tgt.shape[1]} probes x {N_BENCH} sources, {fit_launches} "
         f"launch(es) of the two-set kernel; two-set potential kernel ({kind}, Kahan, "
         f"S={splits}) vs plain: rel err {rel:.2e} (tol 2e-6), {ms:.3f} ms "
-        f"vs plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{POT_FLOPS[kind]} FP32 ops a pair), {bound_ms / ms:.4f} of bound")
+        f"vs plain {plain_ms:.3f} ms; {POT_FLOPS[kind]} FP32 ops a pair, "
+        f"{describe(b, ms)}")
     log(f"(i) wall {time.perf_counter() - t_phase:.1f} s")
     return stats, launches
 
@@ -1200,16 +1256,14 @@ def phase_k(dev):
     check(rel < 2e-6, f"single-pass Plummer kernel vs plain: {rel:.2e}")
     ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 1)
     pairs = tgt.shape[1] * len(x)
-    bound_ms, bound_by = bound(pairs * PAIR_FLOPS[kind],
-                               nbytes(tgt, src, got))
+    b = bound(pairs * PAIR_FLOPS[kind], nbytes(tgt, src, got), pairs,
+              mufu_rate(dev))
     stats["row2"] = dict(max_abs_err=absolute, rel=rel, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, splits=splits)
+                         plain_ms=plain_ms, splits=splits, **b)
     log(f"(k) direct_tile_kernel<PLUMMER,ACC,Kahan> single pass at "
         f"N={len(x)} (the ladder's reference), S={splits}: rel err "
         f"{rel:.2e} (tol 2e-6), {ms:.3f} ms vs plain {plain_ms:.3f} ms; "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {PAIR_FLOPS[kind]} FP32 ops "
-        f"a pair), {bound_ms / ms:.4f} of bound")
+        f"{PAIR_FLOPS[kind]} FP32 ops a pair, {describe(b, ms)}")
 
     # energy drift through run_simulation(method='scf')
     rec = scf_bench.run_drift(n=N_SCF, steps=SCF_DRIFT_STEPS, device=dev,
@@ -1333,6 +1387,177 @@ def phase_k(dev):
     return stats, launches
 
 
+def phase_l(dev):
+    """The potential forms of the direct kernels on the card: checked
+    against their plain versions and the fp64 oracle, timed by CUDA
+    events, and their slots a pair read from the SASS."""
+    from nbody_streams_tpu_torch.benchmarks import sass
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+    from nbody_streams_tpu_torch.ops.pairwise import compute_potential_direct
+    from nbody_streams_tpu_torch.potentials import fit
+
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mufu = mufu_rate(dev)
+    kinds = ("newtonian", "plummer", "dehnen_k1", "dehnen_k2", "spline")
+    f32 = dict(dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(12)
+    n = 4500
+    pos = torch.tensor(rng.normal(0, 1, (n, 3)), **f32)
+    gm = torch.tensor(rng.uniform(0.5, 2.0, n) * 0.43, **f32)
+    soft = torch.tensor(rng.uniform(0.05, 0.3, n), **f32)
+    # two-set, nt != ns, nt not a multiple of 64, the targets and sources
+    # sharing their first min(nt, ns) particles (so the mask has pairs to
+    # drop): every kind, mask off and on, S = 1 and the wrapper's S; 2e-6
+    # * max, the Kahan tolerance
+    worst = 0.0
+    for nt, ns in ((3001, n), (n, 3001)):
+        for kind in kinds:
+            pre = cd._soft_pre(kind, soft)
+            tgt = cd._targets(pos[:nt], pre[:nt])
+            src = cd._sources(pos[:ns], gm[:ns], pre[:ns], cd.TN)
+            auto = cd.split_count("direct", nt, src.shape[1], sms)
+            for mask in (False, True):
+                for splits in (1, None):
+                    args = (tgt, src, kind, "pot", True, 1e-15, mask)
+                    got = cd._direct_tile(*args, splits=splits)
+                    want = cd._direct_tile_reference(*args,
+                                                     splits=splits or auto)
+                    rel, _ = rel_err(got, want)
+                    check(torch.isfinite(got).all().item()
+                          and rel < 2e-6, f"two-set {kind} nt={nt} ns={ns} "
+                          f"mask={mask} S={splits}: {rel:.2e} >= 2e-6")
+                    worst = max(worst, rel)
+    log(f"(l) two-set potential, nt/ns 3001/{n} and {n}/3001, 5 laws x "
+        f"mask off/on x S = 1 and the wrapper's: worst rel err vs plain "
+        f"{worst:.2e} (tol 2e-6)")
+
+    # the self-masked potential with a quarter of the particles at h = 0,
+    # where a missed self pair is -G m / sqrt(eps2), ~1e7 x the physical
+    # potential: finite and within 3e-6 of the fp64 oracle (the JAX
+    # package's kernel-vs-oracle tolerance).  Single pass: every kind at
+    # N = 3,000; sorted two-pass: the spline at N = 16,384
+    cases = [(kind, 3000, 5) for kind in kinds] + [("spline", 16384, 4)]
+    for kind, n_self, seed in cases:
+        xv, m = plummer_case(n_self, seed)
+        p = torch.tensor(xv[:, :3], **f32)
+        mt = torch.tensor(m, **f32)
+        h = torch.full((n_self,), H, **f32)
+        h[::4] = 0.0
+        before = dict(cd.BRANCHES)
+        phi = cd.cuda_potential(p, mt, h, G, kind, True)
+        two_pass = cd.BRANCHES["two_pass"] - before["two_pass"]
+        check(two_pass == (n_self >= cd.SORT_MIN_N),
+              f"{kind} N={n_self}: took the wrong branch {cd.BRANCHES}")
+        want = compute_potential_direct(p.double(), mt.double(), h.double(),
+                                        G=G, kernel=kind,
+                                        precision="float64")
+        rel, _ = rel_err(phi, want)
+        check(torch.isfinite(phi).all().item() and rel < 3e-6,
+              f"self {kind} N={n_self} with h = 0: {rel:.2e} >= 3e-6")
+        log(f"(l) cuda_potential {kind} at N={n_self}, a quarter at h = 0 "
+            f"({'sorted two-pass' if two_pass else 'single pass'}): rel "
+            f"err vs fp64 {rel:.2e} (tol 3e-6), finite")
+
+    stats = {}
+
+    def form(key, label, flops, fn, ref, pairs, operands, reps,
+             plain=False):
+        """Check ``fn`` against ``ref`` (2e-6 * max), time it over
+        ``reps`` launches, and its plain version once where ``plain``."""
+        got, want = fn(), ref()
+        rel, absolute = rel_err(got, want)
+        check(torch.isfinite(got).all().item() and rel < 2e-6,
+              f"{label}: {rel:.2e} >= 2e-6")
+        ms = cuda_ms(fn, reps)
+        b = bound(pairs * flops, nbytes(*operands, got), pairs, mufu)
+        stats[key] = dict(max_abs_err=absolute, rel=rel, ms=ms,
+                          plain_ms=cuda_ms(ref, 1) if plain else None, **b)
+        log(f"(l) {label}: rel err {rel:.2e} (tol 2e-6), {ms:.4f} ms"
+            + (f" vs plain {stats[key]['plain_ms']:.3f} ms" if plain
+               else "") + f"; {flops} FP32 ops a pair, {describe(b, ms)}")
+
+    # row 2b at the fit's shape: the CylSpline grid's probes of the bench
+    # case's Plummer against its particles, h = 0 probes
+    xv, m = plummer_case(N_BENCH, 2)
+    centred = xv[:, :3] - xv[:, :3].mean(0)
+    probes = fit.cylspline_grid(centred)[3]
+    kind = "plummer"
+    tgt = cd._targets(torch.tensor(probes, **f32),
+                      cd._soft_pre(kind, torch.zeros(len(probes), **f32)))
+    src = cd._sources(torch.tensor(centred, **f32),
+                      torch.tensor(m * G, **f32),
+                      cd._soft_pre(kind, torch.full((N_BENCH,), H, **f32)),
+                      cd.TN)
+    splits = cd.split_count("direct", tgt.shape[1], src.shape[1], sms)
+    form("fit", f"two-set potential (fit), {tgt.shape[1]} x {N_BENCH}, "
+         f"S={splits}", POT_FLOPS[kind],
+         lambda: cd._direct_tile(tgt, src, kind, "pot", True, 1e-15),
+         lambda: cd._direct_tile_reference(tgt, src, kind, "pot", True,
+                                           1e-15, splits=splits),
+         tgt.shape[1] * N_BENCH, (tgt, src), 50, plain=True)
+    stats["fit"]["splits"] = splits
+
+    # the self spline potential at the DF satellite: too compact for the
+    # band, so the single pass (the bound_phi friction's potential)
+    tgt, src, _, nb, _, width = sorted_operands(*df_case(), dev)
+    check(width > nb, f"DF satellite window {width} fits the band {nb}")
+    splits = cd.split_count("direct", N_BENCH, src.shape[1], sms)
+    form("df_potential", "self spline potential single pass (DF "
+         f"satellite), S={splits}", POT_FLOPS["spline"],
+         lambda: cd._direct_tile(tgt, src, "spline", "pot", True, 1e-15,
+                                 True),
+         lambda: cd._direct_tile_reference(tgt, src, "spline", "pot", True,
+                                           1e-15, True, splits=splits),
+         N_BENCH * src.shape[1], (tgt, src), 10)
+
+    # the sorted path at the bench case: the potential's base and band
+    # passes (mask_self; at S = 1 and the wrapper's S), then rows 1 and 3
+    tgt, src, start, nb, _, width = sorted_operands(xv, m, dev)
+    check(width <= nb, f"bench case window {width} > {nb}")
+    ns = src.shape[1]
+    base_pairs, band_pairs = N_BENCH * (ns - nb * cd.TN), N_BENCH * nb * cd.TN
+    for mode in ("pot", "acc"):
+        what = "potential" if mode == "pot" else "acceleration"
+        mask = mode == "pot"
+        flops = POT_FLOPS if mask else PAIR_FLOPS
+        for s in ((1, None) if mask else (None,)):
+            s_base = s or cd.split_count("direct", N_BENCH, ns, sms, nb, cd.TN)
+            s_band = s or cd.split_count("band", N_BENCH, ns, sms, nb, cd.TN)
+            tag = f"{mode}_{'s1' if s else 'auto'}"
+            form(f"base_{tag}", f"{what} base pass (bench case), S={s_base}",
+                 flops["newtonian"],
+                 lambda: cd._direct_tile(tgt, src, "newtonian", mode, True,
+                                         1e-15, mask, nb, start, splits=s),
+                 lambda: cd._direct_tile_reference(
+                     tgt, src, "newtonian", mode, True, 1e-15, mask, nb,
+                     start, splits=s_base),
+                 base_pairs, (tgt, src, start), 20 if s is None else 2)
+            form(f"band_{tag}", f"{what} band pass (bench case), "
+                 f"S={s_band}", flops["spline"],
+                 lambda: cd._band(tgt, src, start, mode, True, 1e-15, mask,
+                                  cd.TM, cd.TN, nb, splits=s),
+                 lambda: cd._band_reference(tgt, src, start, mode, True,
+                                            1e-15, mask, cd.TM, cd.TN, nb,
+                                            s_band),
+                 band_pairs, (tgt, src, start), 20 if s is None else 2)
+
+    # slots a pair and registers of the forms timed here
+    prof = sass.library_profile()
+    for label, r in prof.items():
+        if "POT" in label or label.startswith(("direct_tile_kernel<NEWTON",
+                                               "band_kernel<ACC")):
+            log(f"(l) {label}: {r['registers']} registers, "
+                f"{r['spill_bytes']} spill bytes, "
+                f"{r['slots_per_pair']:.3f} slots a pair: "
+                + ", ".join(f"{op} {v:g}" for op, v in
+                            r["per_pair"].items()))
+    stats["slots"] = {label: r.get("slots_per_pair")
+                      for label, r in prof.items()}
+    log(f"(l) wall {time.perf_counter() - t_phase:.1f} s")
+    return stats
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--log-dir", help="copy the nvcc build log here")
@@ -1357,9 +1582,18 @@ def main():
     ext_stats, ext_launches = phase_i(dev, bench["ms_per_step"])
     df_stats, df_launches = phase_j(dev)
     scf_stats, scf_launches = phase_k(dev)
+    pot_stats = phase_l(dev)
+    slots = pot_stats["slots"]
     # no single PyTorch call computes a softened all-pairs sum or an
     # fma / rsqrt chain: library_ms is null for every kernel
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_pipe")
+
+    def measured(st):
+        """The numbers of a kernel's entry, fp32_share the share of the
+        FP32 bound alone."""
+        return {**{k: st[k] for k in keys},
+                "fp32_share": st["fp32_bound_ms"] / st["ms"]}
     # the run paths, each with its launch counts zeroed just before it (the
     # fit's launch has a row of its own below; the SCF ladder's reference
     # launches the single pass once)
@@ -1371,9 +1605,8 @@ def main():
         by_path = {k: p[key] for k, p in paths.items()}
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": sum(by_path.values()),
-                "launches_by_path": by_path,
-                **{k: st[k] for k in keys}, "library_ms": None,
-                "splits": st["splits"]}
+                "launches_by_path": by_path, **measured(st),
+                "library_ms": None, "splits": st["splits"]}
 
     kernels = [
         # rows 1 and 3: the sorted path's two passes at the bench case
@@ -1386,19 +1619,23 @@ def main():
             "pallas_call :476)", scf_stats["row2"]),
         row("band_kernel", "band",
             "nbody_streams_tpu/ops/pallas_direct.py:494", stats["band"])]
+    kernels[0]["slots"] = slots[
+        "direct_tile_kernel<NEWTONIAN,ACC,Kahan,skip> (base pass)"]
+    kernels[2]["slots"] = slots["band_kernel<ACC,Kahan> (band pass)"]
     # which branch the sorted path picked on the DF runs
     kernels[1]["branches_by_path"] = {k: df_stats[k]["branches"]
                                       for k in df_launches}
     # the two-set potential form of the single-pass kernel (the fit's
-    # launch site), timed at the fit's shape
+    # launch site; its launches from phase i's fit), timed at the fit's
+    # shape in phase l
+    label = "direct_tile_kernel<PLUMMER,POT,Kahan> (two-set, fit)"
     kernels.append({
-        "name": "direct_tile_kernel<PLUMMER,POT,Kahan> (two-set, fit)",
-        "route": "cuda", "source": SOURCE,
+        "name": label, "route": "cuda", "source": SOURCE,
         "replaces": "nbody_streams_tpu/ops/pallas_direct.py:790 (via "
                     "potentials/fit.py:296)",
         "launches": ext_stats["fit"]["launches"],
-        **{k: ext_stats["fit"][k] for k in keys}, "library_ms": None,
-        "splits": ext_stats["fit"]["splits"]})
+        **measured(pot_stats["fit"]), "library_ms": None,
+        "splits": pot_stats["fit"]["splits"], "slots": slots[label]})
     replaces = {
         "fma_chain": "nbody_streams_tpu/ops/probe.py:62, bench.py:95, "
                      "benchmarks/tile_sweep.py:111",
@@ -1407,9 +1644,12 @@ def main():
     kernels += [{"name": f"{key}_kernel", "route": "cuda",
                  "source": ROOFLINE_SOURCE, "replaces": replaces[key],
                  "launches": roof_launches[key],
-                 **{k: roof_stats[key][k] for k in keys},
-                 "library_ms": None}
+                 **measured(roof_stats[key]), "library_ms": None}
                 for key in ("fma_chain", "rsqrt_chain", "tile_sol")]
+    # tile_sol at full occupancy (phase g), the newtonian form
+    kernels[-1].update(blocks=roof_stats["tile_sol"]["blocks"],
+                       reps=roof_stats["tile_sol"]["reps"],
+                       slots=slots["tile_sol_kernel<NEWTONIAN>"])
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

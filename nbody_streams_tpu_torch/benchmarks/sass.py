@@ -21,13 +21,23 @@ from collections import Counter
 from pathlib import Path
 
 #: Kernels read, by a fragment of their mangled name: KIND 0 = newtonian,
-#: 4 = spline; MODE 0 = acc; Kahan on; SKIP on for the base pass.
+#: 1 = plummer, 4 = spline; MODE 0 = acc, 1 = pot; Kahan on; SKIP on for
+#: the base pass.  A potential form holds two pair loops, the diagonal
+#: tile's masked one and the unmasked one; the reader takes the shorter,
+#: the unmasked loop that every other tile runs.
 KERNELS = {
     "direct_tile_kernel<NEWTONIAN,ACC,Kahan,skip> (base pass)":
         "direct_tile_kernelILi0ELi0ELb1ELb1E",
     "band_kernel<ACC,Kahan> (band pass)": "band_kernelILi0ELb1E",
     "direct_tile_kernel<SPLINE,ACC,Kahan> (single pass)":
         "direct_tile_kernelILi4ELi0ELb1ELb0E",
+    "direct_tile_kernel<PLUMMER,POT,Kahan> (two-set, fit)":
+        "direct_tile_kernelILi1ELi1ELb1ELb0E",
+    "direct_tile_kernel<SPLINE,POT,Kahan> (single pass)":
+        "direct_tile_kernelILi4ELi1ELb1ELb0E",
+    "direct_tile_kernel<NEWTONIAN,POT,Kahan,skip> (base pass)":
+        "direct_tile_kernelILi0ELi1ELb1ELb1E",
+    "band_kernel<POT,Kahan> (band pass)": "band_kernelILi1ELb1E",
     "combine_kernel<Kahan>": "combine_kernelILb1E",
     "tile_sol_kernel<NEWTONIAN>": "tile_sol_kernelILi0E",
     "tile_sol_kernel<SPLINE>": "tile_sol_kernelILi4E",

@@ -33,10 +33,34 @@
 // targets lie in one band tile.  Not done: wgmma, TMA, cp.async staging,
 // and fusing the base and band passes.
 //
+// The potential forms (MODE == POT: the CylSpline fit's two-set call,
+// bound_phi's friction potential, system_energy) do a pair in ~10 FP32
+// operations and one MUFU rsqrt, so the loop's own overhead weighs more
+// than in the acceleration forms.  What keeps it small:
+// - the self mask (pairs at identical index) runs only on the block's
+//   diagonal tile, the one source tile that can hold j == i for the
+//   block's targets (tiles start at multiples of BLOCK); every other tile,
+//   and every tile of a call without the mask, runs the loop without the
+//   compare and select;
+// - each term goes into the sum as one FFMA, and the Plummer law adds
+//   eps2 to h^2 as it is loaded, one add a pair fewer (pot_sum);
+// - direct_tile_kernel stages POT_GROUPS tiles per barrier pair with
+//   16-byte loads, and each thread holds POT_TPT targets, so that every
+//   staged source in a register serves POT_TPT pairs (one target a
+//   thread, or a cap of 64 registers, measured slower on the H100).
+// A block still covers BLOCK targets, so the grid, the split count, the
+// band tile and the diagonal tile are those of the acceleration forms.
+// The sum per target keeps its order: plain FP32 over each tile in k
+// order, a Kahan step between tiles, the fixed-order combine over splits.
+// The acceleration forms keep their own instruction sequence.
+//
 // Layout and pair arithmetic: direct_math.cuh.  Output is (nt, 3) row-major
 // for accelerations, (nt,) for potentials; the scratch of S > 1 is
 // (2, S, nt * W) floats, totals then compensations, W = 3 or 1.  Kernels
 // launch on the caller's stream, allocate nothing and do not synchronise.
+// The sources are 16-byte aligned (the potential forms load float4s).
+
+#include <cstdint>
 
 #include "direct_math.cuh"
 
@@ -89,22 +113,13 @@ __device__ __forceinline__ void accumulate(float total[3], float comp[3],
   }
 }
 
-// Rows 1 and 2 of the kernel table: every target against its split's share
-// of the source tiles, with SKIP the tiles of rows [start[t], start[t] + nb)
-// of tn sources of the block's band tile t left out (the band pass covers
-// them) and the tiles outside them shared evenly among the splits.
-template <int KIND, int MODE, bool KAHAN, bool SKIP>
-__global__ void __launch_bounds__(BLOCK)
-direct_tile_kernel(const float* __restrict__ tgt, int nt,
-                   const float* __restrict__ src, int ns,
-                   const int* __restrict__ start, int tm, int tn, int nb,
-                   int mask_self, float eps2, float* __restrict__ part,
-                   float* __restrict__ out) {
-  __shared__ Tile s;
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const Target t = load_target(tgt, nt, i);
-  const int tiles = ns / BLOCK;
-  int band_lo = 0, band_n = 0;  // the band's tiles [band_lo, +band_n)
+// With SKIP, the tiles [band_lo, band_lo + band_n) of the block's band
+// rows [start[t], start[t] + nb) of tn sources, t the block's band tile.
+template <bool SKIP>
+__device__ __forceinline__ void band_tiles(const int* __restrict__ start,
+                                           int tm, int tn, int nb, int tiles,
+                                           int& band_lo, int& band_n) {
+  band_lo = band_n = 0;
   if (SKIP) {
     const int per_row = tn / BLOCK;
     const long long lo = static_cast<long long>(
@@ -113,21 +128,142 @@ direct_tile_kernel(const float* __restrict__ tgt, int nt,
     band_lo = clamp_tile(lo, tiles);
     band_n = clamp_tile(hi, tiles) - band_lo;
   }
+}
+
+// The source tile of the split-local index k: the tiles outside the band,
+// in order.
+__device__ __forceinline__ int tile_of(int k, int band_lo, int band_n) {
+  return k < band_lo ? k : k + band_n;
+}
+
+// The potential forms of direct_tile_kernel: POT_TPT targets a thread,
+// POT_THREADS threads a block of BLOCK targets, POT_GROUPS tiles staged a
+// barrier pair.
+constexpr int POT_TPT = 2;
+constexpr int POT_THREADS = BLOCK / POT_TPT;
+constexpr int POT_GROUPS = 4;
+
+struct alignas(16) Groups {  // row r of staged tile g at row[r][g * BLOCK]
+  float row[5][POT_GROUPS * BLOCK];
+};
+
+// Stage the split's tiles k .. k + n - 1 (n <= POT_GROUPS) with one float4
+// of a row a load; for the Plummer law h^2 + eps2 (pot_sum).
+template <int KIND>
+__device__ __forceinline__ void stage_groups(Groups& s,
+                                             const float* __restrict__ src,
+                                             int ns, int k, int n,
+                                             int band_lo, int band_n,
+                                             float eps2) {
+  constexpr int Q = BLOCK / 4;            // float4s of a tile's row
+  constexpr int PER_ROW = POT_GROUPS * Q;
+  static_assert(5 * PER_ROW % POT_THREADS == 0, "whole trips");
+#pragma unroll
+  for (int m = 0; m < 5 * PER_ROW / POT_THREADS; ++m) {
+    const int e = m * POT_THREADS + threadIdx.x;
+    const int r = e / PER_ROW, g = (e / Q) % POT_GROUPS, q = e % Q;
+    if (g < n) {
+      const int j0 = tile_of(k + g, band_lo, band_n) * BLOCK;
+      float4 v = reinterpret_cast<const float4*>(src + r * ns + j0)[q];
+      if (KIND == PLUMMER && r == 4) {
+        v.x += eps2;
+        v.y += eps2;
+        v.z += eps2;
+        v.w += eps2;
+      }
+      reinterpret_cast<float4*>(s.row[r] + g * BLOCK)[q] = v;
+    }
+  }
+}
+
+template <int KIND, bool KAHAN, bool SKIP>
+__device__ __forceinline__ void direct_pot(
+    const float* __restrict__ tgt, int nt, const float* __restrict__ src,
+    int ns, const int* __restrict__ start, int tm, int tn, int nb,
+    int mask_self, float eps2, float* __restrict__ part,
+    float* __restrict__ out) {
+  __shared__ Groups s;
+  const int i0 = blockIdx.x * BLOCK + threadIdx.x;
+  Target t[POT_TPT];
+#pragma unroll
+  for (int a = 0; a < POT_TPT; ++a) {
+    t[a] = load_target(tgt, nt, i0 + a * POT_THREADS);
+    if (KIND == PLUMMER) t[a].pre += eps2;  // as stage_groups
+  }
+  const int tiles = ns / BLOCK;
+  int band_lo, band_n;
+  band_tiles<SKIP>(start, tm, tn, nb, tiles, band_lo, band_n);
   int k_lo, k_hi;
   split_range(tiles - band_n, k_lo, k_hi);
-  constexpr int W = MODE == ACC ? 3 : 1;
-  float total[3] = {0.f, 0.f, 0.f};
-  float comp[3] = {0.f, 0.f, 0.f};
-  for (int k = k_lo; k < k_hi; ++k) {
-    const int j0 = (k < band_lo ? k : k + band_n) * BLOCK;
-    __syncthreads();  // the previous tile is consumed
-    stage(s, src, ns, j0);
+  // the block's diagonal tile: j0 == its first target index
+  const int diag = mask_self ? static_cast<int>(blockIdx.x) : -1;
+  float total[POT_TPT], comp[POT_TPT];
+#pragma unroll
+  for (int a = 0; a < POT_TPT; ++a) total[a] = comp[a] = 0.f;
+  for (int k = k_lo; k < k_hi; k += POT_GROUPS) {
+    const int n = min(POT_GROUPS, k_hi - k);
+    __syncthreads();  // the previous tiles are consumed
+    stage_groups<KIND>(s, src, ns, k, n, band_lo, band_n, eps2);
     __syncthreads();
-    float p[3] = {0.f, 0.f, 0.f};
-    tile_sum<KIND, MODE>(s, t, i, j0, mask_self != 0, eps2, p);
-    accumulate<W, KAHAN>(total, comp, p);
+    for (int g = 0; g < n; ++g) {
+      const Rows rows{s.row[0] + g * BLOCK, s.row[1] + g * BLOCK,
+                      s.row[2] + g * BLOCK, s.row[3] + g * BLOCK,
+                      s.row[4] + g * BLOCK};
+      float p[POT_TPT];
+#pragma unroll
+      for (int a = 0; a < POT_TPT; ++a) p[a] = 0.f;
+      if (tile_of(k + g, band_lo, band_n) == diag)
+        pot_sum<KIND, true, POT_TPT>(rows, t, eps2, p);
+      else
+        pot_sum<KIND, false, POT_TPT>(rows, t, eps2, p);
+#pragma unroll
+      for (int a = 0; a < POT_TPT; ++a) {
+        if (KAHAN) kahan_add(total[a], comp[a], p[a]);
+        else total[a] += p[a];
+      }
+    }
   }
-  store<MODE>(out, part, nt, i, total, comp);
+#pragma unroll
+  for (int a = 0; a < POT_TPT; ++a)
+    store<POT>(out, part, nt, i0 + a * POT_THREADS, &total[a], &comp[a]);
+}
+
+// Rows 1, 2 and 2b of the kernel table: every target against its split's
+// share of the source tiles, with SKIP the band's tiles left out (the band
+// pass covers them) and the tiles outside them shared evenly among the
+// splits.  MODE == POT runs direct_pot.
+template <int KIND, int MODE, bool KAHAN, bool SKIP>
+__global__ void __launch_bounds__(MODE == ACC ? BLOCK : POT_THREADS)
+direct_tile_kernel(const float* __restrict__ tgt, int nt,
+                   const float* __restrict__ src, int ns,
+                   const int* __restrict__ start, int tm, int tn, int nb,
+                   int mask_self, float eps2, float* __restrict__ part,
+                   float* __restrict__ out) {
+  if constexpr (MODE == POT) {
+    direct_pot<KIND, KAHAN, SKIP>(tgt, nt, src, ns, start, tm, tn, nb,
+                                  mask_self, eps2, part, out);
+  } else {
+    __shared__ Tile s;
+    const int i = blockIdx.x * BLOCK + threadIdx.x;
+    const Target t = load_target(tgt, nt, i);
+    const int tiles = ns / BLOCK;
+    int band_lo, band_n;
+    band_tiles<SKIP>(start, tm, tn, nb, tiles, band_lo, band_n);
+    int k_lo, k_hi;
+    split_range(tiles - band_n, k_lo, k_hi);
+    float total[3] = {0.f, 0.f, 0.f};
+    float comp[3] = {0.f, 0.f, 0.f};
+    for (int k = k_lo; k < k_hi; ++k) {
+      const int j0 = tile_of(k, band_lo, band_n) * BLOCK;
+      __syncthreads();  // the previous tile is consumed
+      stage(s, src, ns, j0);
+      __syncthreads();
+      float p[3] = {0.f, 0.f, 0.f};
+      tile_sum<KIND>(s, t, eps2, p);
+      accumulate<3, KAHAN>(total, comp, p);
+    }
+    store<ACC>(out, part, nt, i, total, comp);
+  }
 }
 
 // Row 3: the full spline over the split's share of each target tile's nb
@@ -155,6 +291,8 @@ band_kernel(const float* __restrict__ tgt, int nt,
   int b_lo, b_hi;
   split_range(nb, b_lo, b_hi);
   constexpr int W = MODE == ACC ? 3 : 1;
+  // the block's diagonal tile (potential forms): j0 == its first target
+  const int diag = mask_self ? static_cast<int>(blockIdx.x) * BLOCK : -1;
   float total[3] = {0.f, 0.f, 0.f};
   float comp[3] = {0.f, 0.f, 0.f};
   for (int b = b_lo; b < b_hi; ++b) {
@@ -164,7 +302,12 @@ band_kernel(const float* __restrict__ tgt, int nt,
       __syncthreads();
       stage(s, src, ns, j0);
       __syncthreads();
-      tile_sum<SPLINE, MODE>(s, t, i, j0, mask_self != 0, eps2, p);
+      if constexpr (MODE == ACC)
+        tile_sum<SPLINE>(s, t, eps2, p);
+      else if (j0 == diag)
+        pot_sum<SPLINE, true, 1>(rows_of(s), &t, eps2, p);
+      else
+        pot_sum<SPLINE, false, 1>(rows_of(s), &t, eps2, p);
     }
     accumulate<W, KAHAN>(total, comp, p);
   }
@@ -227,9 +370,10 @@ void launch_combine(bool kahan, int mode, const Args& a,
 
 template <int KIND, int MODE, bool KAHAN, bool SKIP>
 void launch_direct(const Args& a, cudaStream_t stream) {
-  direct_tile_kernel<KIND, MODE, KAHAN, SKIP><<<grid(a), BLOCK, 0, stream>>>(
-      a.tgt, a.nt, a.src, a.ns, a.start, a.tm, a.tn, a.nb, a.mask_self,
-      a.eps2, a.part, a.out);
+  direct_tile_kernel<KIND, MODE, KAHAN, SKIP>
+      <<<grid(a), MODE == ACC ? BLOCK : POT_THREADS, 0, stream>>>(
+          a.tgt, a.nt, a.src, a.ns, a.start, a.tm, a.tn, a.nb, a.mask_self,
+          a.eps2, a.part, a.out);
 }
 
 template <int KIND, int MODE>
@@ -288,7 +432,9 @@ int nbody_direct(int kind, int mode, int kahan, int nb, const float* tgt,
                  int tn, int mask_self, float eps2, int splits, float* part,
                  float* out, void* stream) {
   if (kind < NEWTONIAN || kind > SPLINE || (mode != ACC && mode != POT) ||
-      nt <= 0 || ns <= 0 || ns % BLOCK != 0 || (nb > 0 && start == nullptr) ||
+      nt <= 0 || ns <= 0 || ns % BLOCK != 0 ||
+      reinterpret_cast<uintptr_t>(src) % 16 != 0 ||
+      (nb > 0 && start == nullptr) ||
       (nb > 0 && (tm <= 0 || tn % BLOCK != 0)) || bad_splits(splits, part))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{tgt, nt, src, ns, start, tm, tn, nb, mask_self, eps2,

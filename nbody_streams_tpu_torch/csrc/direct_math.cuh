@@ -153,11 +153,9 @@ __device__ __forceinline__ void stage(Tile& s, const float* src, int ns,
   s.pre[threadIdx.x] = src[4 * ns + j];
 }
 
-// Plain FP32 sum of one staged tile into p[0..2] (acc) or p[0] (pot).
-// Potential mode zeroes the self pair (global source index == i).
-template <int KIND, int MODE>
+// Plain FP32 sum of the accelerations of one staged tile into p[0..2].
+template <int KIND>
 __device__ __forceinline__ void tile_sum(const Tile& s, const Target& t,
-                                         int i, int j0, bool mask_self,
                                          float eps2, float p[3]) {
 #pragma unroll 8
   for (int k = 0; k < BLOCK; ++k) {
@@ -166,14 +164,56 @@ __device__ __forceinline__ void tile_sum(const Tile& s, const Target& t,
     const float dz = s.z[k] - t.z;
     const float r2 = dx * dx + (dy * dy + (dz * dz + eps2));
     const float pre = pair_pre<KIND>(t.pre, s.pre[k]);
-    if (MODE == ACC) {
-      const float w = s.gm[k] * force_pre<KIND>(r2, pre);
-      p[0] += w * dx;
-      p[1] += w * dy;
-      p[2] += w * dz;
-    } else {
-      const float u = s.gm[k] * pot_pre<KIND>(r2, pre);
-      p[0] += (mask_self && j0 + k == i) ? 0.f : u;
+    const float w = s.gm[k] * force_pre<KIND>(r2, pre);
+    p[0] += w * dx;
+    p[1] += w * dy;
+    p[2] += w * dz;
+  }
+}
+
+// BLOCK staged sources in shared memory, one pointer a row.
+struct Rows {
+  const float *x, *y, *z, *gm, *pre;
+};
+
+__device__ __forceinline__ Rows rows_of(const Tile& s) {
+  return Rows{s.x, s.y, s.z, s.gm, s.pre};
+}
+
+// Plain FP32 sum of the potential of BLOCK staged sources on TPT targets a
+// thread, each into p[a] in k order; thread l holds the block's targets
+// l + a * BLOCK / TPT.  A term goes in as one FFMA, G m u and the sum
+// rounded once, where the plain version rounds the product and then the
+// sum: a term differs from it by at most one ulp of the term.  MASK, for
+// the block's diagonal tile only (the one whose first source index is the
+// block's first target index), zeroes the pair k = l + a * BLOCK / TPT,
+// the target's own index; every other tile runs the loop without the test.
+// For the Plummer law the caller has added eps2 to both sides' h^2 (pre):
+// max(h_i^2 + eps2, h_j^2 + eps2) is max(h_i^2, h_j^2) + eps2 exactly
+// (rounding is monotone), so r^2 + eps2 + h^2 takes one add fewer, summed
+// in another order (within an ulp or two of r2 + pre).
+template <int KIND, bool MASK, int TPT>
+__device__ __forceinline__ void pot_sum(const Rows& s, const Target* t,
+                                        float eps2, float* p) {
+#pragma unroll 8
+  for (int k = 0; k < BLOCK; ++k) {
+    const float xs = s.x[k], ys = s.y[k], zs = s.z[k];
+    const float gs = s.gm[k], ps = s.pre[k];
+#pragma unroll
+    for (int a = 0; a < TPT; ++a) {
+      const float dx = xs - t[a].x;
+      const float dy = ys - t[a].y;
+      const float dz = zs - t[a].z;
+      float u;
+      if constexpr (KIND == PLUMMER) {
+        u = -rsqrt_ftz(dx * dx + (dy * dy + (dz * dz + fmaxf(t[a].pre, ps))));
+      } else {
+        const float r2 = dx * dx + (dy * dy + (dz * dz + eps2));
+        u = pot_pre<KIND>(r2, pair_pre<KIND>(t[a].pre, ps));
+      }
+      const bool self =
+          MASK && k == static_cast<int>(threadIdx.x) + a * (BLOCK / TPT);
+      p[a] = fmaf(gs, self ? 0.f : u, p[a]);
     }
   }
 }

@@ -30,7 +30,9 @@
 // - no fast-math, like direct.cu: the rsqrt is the one approximate
 //   instruction (rsqrtf in the chain, rsqrt_ftz in tile_sum), and
 //   tile_sol_kernel runs tile_sum from direct_math.cuh, the instructions
-//   of direct_tile_kernel itself.
+//   of direct_tile_kernel's acceleration forms and band_kernel's.  That is
+//   why its sequence stays as it is: a faster sequence here would bound
+//   some other kernel, not those.
 // The host checks every rate against the card's peak (SM count x max
 // clock x 256 FP32 ops or 16 MUFU results per SM per clock): a reading
 // above it means work was deleted.
@@ -120,7 +122,7 @@ tile_sol_kernel(const float* __restrict__ tgt, int nt,
   float comp[3] = {0.f, 0.f, 0.f};
   for (int r = 0; r < reps; ++r) {
     float p[3] = {0.f, 0.f, 0.f};
-    tile_sum<KIND, ACC>(s, t, i, j0, false, eps2, p);
+    tile_sum<KIND>(s, t, eps2, p);
 #pragma unroll
     for (int c = 0; c < 3; ++c) kahan_add(total[c], comp[c], p[c]);
     t.x = t0.x + total[0] * NUDGE;

@@ -176,10 +176,14 @@ def init_state(
     """Build the initial state on ``device``, including the first force
     evaluation (at the resume time ``t0 + start_step*dt``).
 
-    Pass ``sort_fn`` (e.g. ``solver.sort_key``) when the chunks will run
-    with ``presort=True`` so the first force call already reuses an
-    order."""
-    device = torch.device(device if device is not None else "cpu")
+    With no ``device`` a tensor ``pos`` keeps its device; anything else
+    goes to the card, and without one the default raises (pass
+    ``device='cpu'`` for the CPU).  Pass ``sort_fn`` (e.g.
+    ``solver.sort_key``) when the chunks will run with ``presort=True`` so
+    the first force call already reuses an order."""
+    if device is None:
+        device = pos.device if isinstance(pos, torch.Tensor) else "cuda"
+    device = resolve_device(device)
     pos = _as_tensor(pos, dtype, device)
     vel = _as_tensor(vel, dtype, device)
     zeros = torch.zeros_like(pos)

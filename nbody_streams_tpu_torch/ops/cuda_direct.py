@@ -19,6 +19,11 @@ four waves.  For S > 1 the wrapper allocates the scratch of the partial
 sums and the kernel's second launch, ``combine_kernel``, adds them in a
 fixed order.
 
+In potential mode ``mask_self`` excludes the pairs at identical index.
+Such a pair can lie only in a block's diagonal tile (the source tile whose
+first index is the block's first target index, as tiles and target blocks
+both start at multiples of BLOCK), so the kernels test for it there alone.
+
 Beside each wrapper is its plain torch version (``_direct_tile_reference``,
 ``_band_reference``), with the same masking, splits and Kahan grouping.
 A wrapper runs the plain version only for tensors on the CPU; for a CUDA
@@ -206,6 +211,9 @@ def _check_operands(tgt, src, start, nb, tm, tn):
                              f"{tuple(t.shape)}")
     if src.device != tgt.device:
         raise ValueError("tgt and src must be on one device")
+    if src.is_cuda and src.data_ptr() % 16:
+        raise ValueError("src must be 16-byte aligned (the potential "
+                         "kernels load float4s)")
     if src.shape[1] % (tn if nb else BLOCK):
         raise ValueError(f"source count {src.shape[1]} must be a multiple of "
                          f"{tn if nb else BLOCK}")

@@ -18,7 +18,11 @@ reading means work was deleted.  The external fields: float32 on the card
 against float64 on the CPU within chip_smoke.FIELD_TOL (four times the JAX
 package's own float32 error at the same points), with no host sync inside
 ``force`` and with TF32 allowed; the CylSpline fit's two-set potential
-kernel within 2e-6 of its plain version.  The defaults of the entry
+kernel within 2e-6 of its plain version.  The potential forms: two-set
+and self-masked within 2e-6 of plain, with h = 0 particles within 3e-6
+of the fp64 oracle; the SASS of the acceleration forms keeps its slots a
+pair, and the potential forms' hot loop has no self-mask test.  The
+defaults of the entry
 points land on the card; the SCF tier stays within chip_smoke.SCF_TOL of
 float64 with TF32 switched on; the friction term runs without a host
 sync, within chip_smoke.DF_TOL of float64.
@@ -98,6 +102,83 @@ def test_direct_tile_kernel_matches_plain(dev, kind):
                 want = cd._direct_tile_reference(*args,
                                                  splits=splits or own)
                 assert _rel(got, want) < (2e-6 if kahan else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_potential_kernels_match_plain(dev, kind):
+    """The potential forms: two-set with nt != ns (neither a multiple of
+    64 for the targets), the sets sharing their first min(nt, ns)
+    particles, mask off and on, at S = 1 and the wrapper's S; the
+    self-masked single pass at N = 3,000.  The sorted path's passes are
+    held in test_two_pass_kernels_match_plain and
+    test_split_two_pass_kernels_match_plain."""
+    rng = np.random.default_rng(12)
+    n = 4500
+    pos = torch.tensor(rng.normal(0, 1, (n, 3)), dtype=torch.float32,
+                       device=dev)
+    gm = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32,
+                      device=dev)
+    pre = cd._soft_pre(kind, torch.tensor(rng.uniform(0.05, 0.3, n),
+                                          dtype=torch.float32, device=dev))
+    for nt, ns in ((3001, n), (n, 3001), (3000, 3000)):
+        tgt = cd._targets(pos[:nt], pre[:nt])
+        src = cd._sources(pos[:ns], gm[:ns], pre[:ns], cd.TN)
+        own = cd.split_count("direct", nt, src.shape[1], _sms(dev))
+        for mask in (False, True):
+            for splits in (1, None):
+                args = (tgt, src, kind, "pot", True, 1e-15, mask)
+                got = cd._direct_tile(*args, splits=splits)
+                want = cd._direct_tile_reference(*args,
+                                                 splits=splits or own)
+                assert torch.isfinite(got).all()
+                assert _rel(got, want) < 2e-6, (nt, ns, mask, splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_zero_softening_self_potential_matches_fp64(dev, kind):
+    """A quarter of the particles at h = 0, where a missed self pair is
+    -G m / sqrt(eps2): the self-masked potential is finite and within 3e-6
+    of the fp64 oracle, single pass at N = 3,000 and, for the spline, the
+    sorted two-pass path at N = 16,384."""
+    from nbody_streams_tpu_torch.ops.pairwise import compute_potential_direct
+
+    for n in (3000, 16384) if kind == "spline" else (3000,):
+        xv, m = make_plummer_sphere(n, M_total=1e9, a=1.0, seed=5)
+        p = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+        mt = torch.tensor(m, dtype=torch.float32, device=dev)
+        h = torch.full((n,), H, dtype=torch.float32, device=dev)
+        h[::4] = 0.0
+        before = cd.BRANCHES["two_pass"]
+        phi = cd.cuda_potential(p, mt, h, G, kind, True)
+        assert cd.BRANCHES["two_pass"] == before + (n >= cd.SORT_MIN_N)
+        want = compute_potential_direct(p.double(), mt.double(), h.double(),
+                                        G=G, kernel=kind,
+                                        precision="float64")
+        assert torch.isfinite(phi).all()
+        assert _rel(phi, want) < 3e-6
+
+
+@pytest.mark.cuda
+def test_sass_slots_a_pair(dev):
+    """The acceleration forms keep their instruction sequence (14.5 slots a
+    pair in the base pass, 32.1 in the band pass), and the potential
+    forms' hot loop has no self-mask compare or select."""
+    from nbody_streams_tpu_torch.benchmarks import sass
+
+    prof = sass.library_profile()
+    base = prof["direct_tile_kernel<NEWTONIAN,ACC,Kahan,skip> (base pass)"]
+    band = prof["band_kernel<ACC,Kahan> (band pass)"]
+    assert base["slots_per_pair"] == 14.5
+    assert round(band["slots_per_pair"], 1) == 32.1
+    for label, r in prof.items():
+        if "POT" in label:
+            # the mask is an integer compare a pair (the loop's own is
+            # one a trip); the laws other than the spline select nothing
+            assert r["per_pair"].get("ISETP", 0) < 0.5, label
+            spline = "SPLINE" in label or label.startswith("band")
+            assert spline or "FSEL" not in r["per_pair"], label
 
 
 def _bench_operands(dev):
@@ -424,9 +505,10 @@ def test_loaders_build_on_the_card(dev):
 @pytest.mark.cuda
 def test_defaults_land_on_the_card(dev):
     """DirectGravity, compute_forces_direct / compute_potential_direct of
-    numpy input, the SCF solvers and make_king_potential build and
-    evaluate on the card unless asked for the CPU, and from_jax_state
-    carries a state (its friction state too) onto the card."""
+    numpy input, the SCF solvers, make_king_potential and init_state of
+    numpy input build and evaluate on the card unless asked for the CPU,
+    and from_jax_state carries a state (its friction state too) onto the
+    card."""
     from nbody_streams_tpu_torch import compute_forces_direct as forces
     from nbody_streams_tpu_torch import compute_potential_direct as pot
     from nbody_streams_tpu_torch.fast_sims import make_king_potential
@@ -438,6 +520,13 @@ def test_defaults_land_on_the_card(dev):
     solver = DirectGravity(m, np.full(512, H))
     assert solver.device.type == "cuda" and solver.impl == "cuda"
     assert solver.mass.is_cuda
+    accel_fn = make_accel_fn(solver, solver.mass)
+    state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, 0.0)
+    assert state.pos.is_cuda and state.acc.is_cuda
+    cpu = DirectGravity(m, np.full(512, H), device="cpu")
+    state = init_state(xv[:, :3], xv[:, 3:], make_accel_fn(cpu, cpu.mass),
+                       cpu.mass, 0.0, device="cpu")
+    assert not state.pos.is_cuda and not state.acc.is_cuda
     for fn in (forces, pot):
         assert fn(xv[:, :3], m, H).is_cuda
         assert not fn(xv[:, :3], m, H, device="cpu").is_cuda

@@ -128,9 +128,10 @@ def test_presort_per_chunk_matches_sort_per_call():
     step_fn = ti.make_kdk_step(accel_fn, DT, 0.0)
     before = dict(cd.BRANCHES)
     per_call = ti.run_chunk(
-        step_fn, ti.init_state(pos, vel, accel_fn, solver.mass, 0.0), 4)
+        step_fn, ti.init_state(pos, vel, accel_fn, solver.mass, 0.0,
+                               device="cpu"), 4)
     s1 = ti.init_state(pos, vel, accel_fn, solver.mass, 0.0,
-                       sort_fn=solver.sort_key)
+                       sort_fn=solver.sort_key, device="cpu")
     presorted = ti.run_chunk(step_fn, s1, 4, presort=True)
     assert cd.BRANCHES["two_pass"] >= before["two_pass"] + 10
     order = presorted.sort_order.numpy()
@@ -154,7 +155,7 @@ def test_run_chunk_refreshes_order_every_k_steps():
     rng = np.random.default_rng(1)
     s0 = ti.init_state(rng.normal(size=(n, 3)), rng.normal(size=(n, 3)),
                        ti.make_accel_fn(solver, solver.mass), solver.mass,
-                       0.0)
+                       0.0, device="cpu")
     ti.run_chunk(step_fn, s0, 5, presort=True, presort_every=2)
     fresh = [i for i in range(1, 5) if seen[i] is not seen[i - 1]]
     assert seen[0] is not None and fresh == [2, 4]
@@ -191,6 +192,7 @@ def test_external_and_extra_hooks_are_added():
     acc, ext, st = accel(pos, pos, 0.0, 2, ext, st)
     assert torch.allclose(acc, self_g + 3.0) and len(calls) == 1
     state = ti.init_state(pos.numpy(), pos.numpy(), accel, solver.mass, 0.0,
-                          start_step=3, dt=DT, force_extra=Extra())
+                          start_step=3, dt=DT, force_extra=Extra(),
+                          device="cpu")
     assert len(calls) == 2        # refreshed at init despite 3 % 2 != 0
     assert dataclasses.asdict(state)["step"] == 3
