@@ -8,7 +8,9 @@ drives ``run_simulation(method='direct', architecture='gpu')`` on the bench
 case (N = 65,536 Plummer, spline softening h = 0.05, float32 + Kahan,
 dt = 2e-5), times it, and drives the measurement path (probe, bench,
 roofline, speed of light, tile sweep, bench suite), the external fields,
-dynamical friction, the SCF tier and the samplers.  Phases:
+dynamical friction, the SCF tier, the samplers, the reference's drop-in
+names with the one-card tree tier, stream generation (particle spray,
+restricted N-body) and unbinding.  Phases:
 
   (a) card name and power limit; kernel build time; each force kernel's
       registers, spills and issue slots a pair from its SASS (the base
@@ -70,11 +72,28 @@ dynamical friction, the SCF tier and the samplers.  Phases:
       at the DF satellite (single pass), the sorted path's potential base
       and band passes and rows 1 and 3 at the bench case; slots a pair and
       registers of those forms from the SASS
+  (m) the drop-in surface, the tree tier, stream generation and
+      unbinding: get_gpu_info / cuda_alive; compute_nbody_forces_gpu vs
+      DirectGravity on the bench case; tree_gravity_gpu there (eps = 0.05)
+      vs the fp64 oracle (3e-6), warning once; run_nbody_gpu_tree 100
+      steps (|dE/E| < 1e-4); run_simulation(method='tree') equal to
+      method='direct' over 100 steps; a profile_dir trace naming the
+      kernels; the spray of examples/stream_in_mw.py (MWPotential22,
+      King W0 = 4, 4,000 particles, float32) on the window SPRAY_WINDOW
+      vs float64 on the CPU within SPRAY_TOL, then timed (rewind and
+      forward ensemble apart, cut in depth to SPRAY_RUN) with the
+      launches, device ms and busy share of an RK4 step and a DP5(4)
+      substep (profiler); run_restricted_nbody at 10,000 particles (bound
+      mass non-increasing above the refit's 10-particle threshold); and
+      iterative_unbinding in both call forms at N = 2^20 with a seeded
+      tenth kicked past escape: ms an iteration by CUDA events, row 2's
+      potential form against its bound, and the final masks against the
+      criterion in fp64 at a sample of 32,768 particles
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card, and
 the one before that a JSON object of the kernels: for the force kernels
-the launches of each run path of phases (d), (i), (j) and (k) under
+the launches of each run path of phases (d), (i), (j), (k) and (m) under
 ``launches_by_path``, counted by kernel form (the base pass, the single
 pass, the band pass) where the wrapper launches it, and in phase (g)'s
 measurement path for the roofline kernels; max error and times from
@@ -176,6 +195,49 @@ N_SCF = 1_048_576
 SCF_DRIFT_STEPS = 200
 LADDER_RECORD = "docs/runs/scf_ladder.txt"
 LADDER_TOL = 0.05
+# phase (m): the spray of examples/stream_in_mw.py at its full size (a
+# Pal 5-like King cluster in MWPotential22), and the window of its first
+# SPRAY_WINDOW output nodes and forward steps where the card's float32 is
+# held against the port's float64 on the CPU
+MW22 = "nbody_streams_tpu_torch/data/potentials/MWPotential22.ini"
+MW22_JAX = "nbody_streams_tpu/data/potentials/MWPotential22.ini"
+SPRAY_CASE = dict(initmass=2e4,
+                  sat_cen_present=np.array([8.3, 0.2, 16.9, -52.0, -96.0,
+                                            -8.0]),
+                  scaleradius=0.02, num_particles=4000, prog_pot_kind="King",
+                  W0=4.0, time_total=2.0, time_end=0.0, n_steps=2000)
+SPRAY_WINDOW = 200
+# card float32 vs CPU float64 on that window, max |err| / max |fp64| of
+# positions and velocities: the rewound orbit over the window's nodes and
+# the released stream at the window's end over its particles.  Four times
+# the JAX package's own float32-vs-float64 error on the same window at 400
+# particles (tests/test_torch_fast_sims.py::test_spray_fp32_error_within_
+# chip_tolerance measures it and pins each limit to 4-5 times it)
+SPRAY_TOL = {"rewind": (9.9e-6, 1.5e-5), "stream": (2.6e-5, 6.5e-5)}
+
+
+def spray_window(**kw):
+    """SPRAY_CASE cut to its first SPRAY_WINDOW output nodes and forward
+    steps (the same step), every step saved: the spray's ``prog_xv`` is
+    then the rewound orbit at each node and ``part_xv[:, -1]`` the stream
+    at the window's end."""
+    case = dict(SPRAY_CASE, **kw)
+    case.update(time_total=SPRAY_WINDOW * case["time_total"]
+                / case["n_steps"], n_steps=SPRAY_WINDOW,
+                save_rate=SPRAY_WINDOW)
+    return case
+
+
+# phase (m): the spray and restricted N-body runs at full width, cut in
+# depth to a quarter of the example's 2.0 time units (kpc / (km/s)) at its
+# step of 1e-3: their eager torch took ~93 (spray) and ~120 (restricted)
+# ms a step on an NVIDIA H100 80GB HBM3 at 700 W (~29 us a launch), so
+# the full 2,000 steps would hold the phase ~7 minutes.  Unbinding at
+# N = 2^20
+SPRAY_RUN = dict(SPRAY_CASE, time_total=0.5, n_steps=500)
+RESTRICTED_N = 10_000
+RESTRICTED_TIME, RESTRICTED_STEPS = 0.5, 500
+N_UNBIND = 1_048_576
 
 
 def log(msg):
@@ -1387,6 +1449,492 @@ def phase_k(dev):
     return stats, launches
 
 
+def zero_launches():
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    for key in cd.LAUNCHES:
+        cd.LAUNCHES[key] = 0
+    for key in cd.BRANCHES:
+        cd.BRANCHES[key] = 0
+
+
+def read_launches():
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    return dict(cd.LAUNCHES)
+
+
+def phi64_at(pos, gm, soft, idx, dev, chunk=(2048, 65536)):
+    """float64 Plummer potential at ``pos[idx]`` from every particle of
+    (pos, G m, soft), the self pair left out (``ops.pairwise``'s
+    potential tile, in chunks of targets x sources)."""
+    from nbody_streams_tpu_torch.ops.pairwise import potential_tile
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    p = torch.as_tensor(pos, **f64)
+    g = torch.as_tensor(gm, **f64)
+    h = torch.as_tensor(soft, **f64).expand(len(pos)).contiguous()
+    ids = torch.arange(len(pos), device=dev)
+    idx = torch.as_tensor(idx, device=dev)
+    out = []
+    for t0 in range(0, len(idx), chunk[0]):
+        ti = idx[t0:t0 + chunk[0]]
+        acc = torch.zeros(len(ti), **f64)
+        for s0 in range(0, len(pos), chunk[1]):
+            sl = slice(s0, s0 + chunk[1])
+            acc += potential_tile("plummer", p[ti], h[ti], ti, p[sl], g[sl],
+                                  h[sl], ids[sl])
+        out.append(acc)
+    return torch.cat(out).cpu().numpy()
+
+
+def m_tree(dev):
+    """(m) 1: device info, the fields aliases and the tree tier."""
+    import warnings
+
+    import nbody_streams_tpu_torch as nst
+    from nbody_streams_tpu_torch import tree
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+    from nbody_streams_tpu_torch.ops.pairwise import (
+        compute_forces_direct, compute_potential_direct)
+
+    info = nst.get_gpu_info()
+    check(info["platform"] == "gpu"
+          and info["device_kind"] == torch.cuda.get_device_name(0)
+          and 0 < info["bytes_in_use"] < info["bytes_limit"],
+          f"get_gpu_info: {info}")
+    check(nst.cuda_alive() is True, "cuda_alive() is not True")
+    log(f"(m) get_gpu_info: {info['device_kind']}, "
+        f"{info['bytes_in_use'] / 2**30:.2f} of "
+        f"{info['bytes_limit'] / 2**30:.2f} GiB in use, "
+        f"{info['n_devices']} device(s); cuda_alive True")
+
+    xv, m = plummer_case(N_BENCH, 2)
+    pos = xv[:, :3]
+    # the reference's compute_nbody_forces_gpu (the plain sum on the card)
+    # against the kernels' DirectGravity on the bench case
+    alias = nst.compute_nbody_forces_gpu(pos, m, H, G=G)
+    kern = DirectGravity(m, np.full(N_BENCH, H), G=G, device=dev).accel(
+        torch.tensor(pos, dtype=torch.float32, device=dev))
+    rel, _ = rel_err(alias, kern)
+    check(alias.is_cuda and rel < 3e-6,
+          f"compute_nbody_forces_gpu vs DirectGravity: {rel:.2e} >= 3e-6")
+    log(f"(m) compute_nbody_forces_gpu vs DirectGravity at N={N_BENCH} "
+        f"(spline, h={H}): rel err {rel:.2e} (tol 3e-6)")
+
+    # tree_gravity_gpu on the bench Plummer at eps = 0.05, twice (one
+    # warning), then run_nbody_gpu_tree: the tree tier's path
+    p64 = torch.tensor(pos, dtype=torch.float64, device=dev)
+    m64 = torch.tensor(m, dtype=torch.float64, device=dev)
+    h64 = torch.full((N_BENCH,), H, dtype=torch.float64, device=dev)
+    tree._warned = False
+    zero_launches()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        acc, phi = nst.tree_gravity_gpu(pos, m, eps=H, G=G, theta=0.5)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        acc2, _ = nst.tree_gravity_gpu(pos, m, eps=H, G=G, theta=0.7,
+                                       nleaf=16)
+        steps = 100
+        with tempfile.TemporaryDirectory() as out_dir:
+            solver = DirectGravity(m, np.full(N_BENCH, H), G=G,
+                                   kernel="plummer", device=dev)
+
+            def energy(xv_):
+                p = torch.tensor(xv_[:, :3], dtype=torch.float32, device=dev)
+                phi_ = solver.potential(p).double().cpu().numpy()
+                return (0.5 * (m * (xv_[:, 3:] ** 2).sum(1)).sum()
+                        + 0.5 * (m * phi_).sum())
+
+            t0 = time.perf_counter()
+            fin = nst.run_nbody_gpu_tree(
+                xv, m, 0.0, steps * DT, DT, softening=H, G=G, theta=0.6,
+                output_dir=out_dir, save_snapshots=False, verbose=False)
+            wall = time.perf_counter() - t0
+    tree_launches = read_launches()
+    hits = [w for w in rec if "tree tier is exact" in str(w.message)]
+    check(len(hits) == 1, f"the tree tier warned {len(hits)} times")
+    check(np.array_equal(acc, acc2), "tree_gravity_gpu is not repeatable")
+    acc64 = compute_forces_direct(p64, m64, h64, G=G, kernel="plummer",
+                                  precision="float64").cpu().numpy()
+    pot64 = compute_potential_direct(p64, m64, h64, G=G, kernel="plummer",
+                                     precision="float64").cpu().numpy()
+    errs = [np.abs(a - b).max() / np.abs(b).max()
+            for a, b in ((acc, acc64), (phi, pot64))]
+    check(acc.dtype == np.float32 and acc.shape == (N_BENCH, 3)
+          and phi.shape == (N_BENCH,) and max(errs) < 3e-6,
+          f"tree_gravity_gpu vs fp64: {errs} (tol 3e-6)")
+    de = abs((energy(fin) - energy(xv)) / energy(xv))
+    check(np.isfinite(fin).all() and de < 1e-4,
+          f"run_nbody_gpu_tree |dE/E| = {de:.3e}")
+    check(tree_launches["single"] > 0, f"tree tier: {tree_launches}")
+    log(f"(m) tree_gravity_gpu at N={N_BENCH}, eps={H}: acc / phi rel err "
+        f"vs fp64 {errs[0]:.2e} / {errs[1]:.2e} (tol 3e-6), first call "
+        f"{ms:.2f} ms wall (solver build included), warned once; "
+        f"run_nbody_gpu_tree {steps} steps in {wall:.2f} s, |dE/E| = "
+        f"{de:.3e} (limit 1e-4); launches {tree_launches}")
+
+    # run_simulation(method='tree') on the bench case: the direct path
+    species = [nst.Species.dark(N=N_BENCH, mass=float(m[0]), softening=H)]
+    finals, launches = {}, {}
+    for method in ("tree", "direct"):
+        zero_launches()
+        with tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.perf_counter()
+            finals[method] = nst.run_simulation(
+                xv, species, 0.0, steps * DT, DT, architecture="gpu",
+                method=method, output_dir=out_dir, save_snapshots=False,
+                verbose=False)["dark"]
+            wall = time.perf_counter() - t0
+        launches[method] = read_launches()
+        log(f"(m) run_simulation(method={method!r}): {steps} steps in "
+            f"{wall:.2f} s, launches {launches[method]}")
+    check(np.array_equal(finals["tree"], finals["direct"]),
+          "method='tree' differs from method='direct'")
+    check(launches["tree"]["base"] > 0 and launches["tree"]["band"] > 0,
+          f"method='tree' missed a kernel: {launches['tree']}")
+
+    # profile_dir: the trace names the base pass's kernel
+    with tempfile.TemporaryDirectory() as prof_dir:
+        nst.run_nbody(xv, m, 0.0, 5 * DT, DT, softening=H, G=G,
+                      architecture="gpu", save_snapshots=False,
+                      verbose=False, output_dir=prof_dir,
+                      profile_dir=f"{prof_dir}/trace")
+        traces = list(Path(prof_dir, "trace").glob("*.json"))
+        check(len(traces) == 1, f"profile_dir wrote {traces}")
+        text = traces[0].read_text()
+    check("direct_tile_kernel" in text and "band_kernel" in text,
+          "the profile_dir trace names no direct_tile_kernel / band_kernel")
+    log(f"(m) profile_dir: {len(text) / 1e6:.1f} MB trace names "
+        "direct_tile_kernel and band_kernel")
+    return {"tree_gravity": tree_launches, "tree": launches["tree"]}
+
+
+def m_spray(dev):
+    """(m) 2: the particle spray of examples/stream_in_mw.py on the card."""
+    from nbody_streams_tpu_torch.fast_sims import KingModel, orbits, spray
+    from nbody_streams_tpu_torch.potentials import load_potential_ini
+
+    mw = load_potential_ini(MW22)
+    check(next(mw.buffers()).is_cuda, "the loader did not build on the card")
+    # the card float32 against the port's float64 on the CPU, on the window
+    case = spray_window()
+    got = spray.create_particle_spray_stream(mw, **case,
+                                             dtype=torch.float32)
+    want = spray.create_particle_spray_stream(
+        load_potential_ini(MW22, device="cpu"), **case,
+        dtype=torch.float64, device="cpu")
+    errs = {}
+    for key, a, b in (("rewind", got["prog_xv"], want["prog_xv"]),
+                      ("stream", got["part_xv"][:, -1],
+                       want["part_xv"][:, -1])):
+        check(np.isfinite(a).all(), f"spray window {key}: not finite")
+        errs[key] = [np.abs(a[:, sl] - b[:, sl]).max()
+                     / np.abs(b[:, sl]).max()
+                     for sl in (slice(0, 3), slice(3, 6))]
+        for err, tol, what in zip(errs[key], SPRAY_TOL[key], ("pos", "vel")):
+            check(err <= tol, f"spray window {key} {what}: {err:.3e} > "
+                  f"{tol:.1e}")
+    log(f"(m) spray window ({SPRAY_WINDOW} nodes, "
+        f"{case['num_particles']} particles) float32 card vs float64 CPU: "
+        f"rewind pos / vel {errs['rewind'][0]:.2e} / "
+        f"{errs['rewind'][1]:.2e}, stream {errs['stream'][0]:.2e} / "
+        f"{errs['stream'][1]:.2e} (SPRAY_TOL {SPRAY_TOL})")
+
+    # the full example, its rewind and forward ensemble timed apart
+    timed, calls = {}, {}
+
+    def timer(name, fn):
+        def run(*args, **kw):
+            calls[name] = (args, kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            timed[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    saved = (spray.integrate_orbit_adaptive, spray.integrate_orbits_released)
+    spray.integrate_orbit_adaptive = timer("rewind", saved[0])
+    spray.integrate_orbits_released = timer("forward", saved[1])
+    try:
+        t0 = time.perf_counter()
+        res = spray.create_particle_spray_stream(mw, **SPRAY_RUN,
+                                                 dtype=torch.float32)
+        wall = time.perf_counter() - t0
+    finally:
+        spray.integrate_orbit_adaptive, spray.integrate_orbits_released = \
+            saved
+    part = res["part_xv"]
+    extent = np.ptp(part[:, :3], axis=0)
+    # the stream has left the cluster: longer than five tidal radii of
+    # the King model, and shorter than the orbit
+    r_t = KingModel(SPRAY_RUN["W0"], SPRAY_RUN["initmass"],
+                    SPRAY_RUN["scaleradius"], G=G).r_tidal
+    check(part.shape == (SPRAY_RUN["num_particles"], 6)
+          and np.isfinite(part).all(), "spray: stream not finite")
+    check(5 * r_t < extent.max() < 100.0,
+          f"spray: stream extent {extent} kpc (tidal radius {r_t:.3f})")
+    n_steps = SPRAY_RUN["n_steps"]
+
+    # launches and device time per RK4 step and per DP5(4) substep
+    # (profiler), and the card's busy share (device ms over wall ms)
+    args, kw = calls["forward"]
+    pot, ics, t_rel, t_start, t_end = args[:5]
+    dt = (t_end - t_start) / n_steps
+    k = 10
+
+    def rk4():
+        orbits.integrate_orbits_released(pot, ics, t_rel, t_start,
+                                         t_start + k * dt, k, **kw)
+
+    rk4()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rk4()
+    torch.cuda.synchronize()
+    rk4_ms = 1e3 * (time.perf_counter() - t0) / k
+    n_rk4, dev_rk4 = profile_launches(rk4)
+    args, kw = calls["rewind"]
+    substeps = [0]
+    step = orbits._dp45_step
+
+    def counted(*a, **k_):
+        substeps[0] += 1
+        return step(*a, **k_)
+
+    pot_r, sat, t_hi, t_lo = args[:4]
+    h_out = (t_lo - t_hi) / kw["n_out"]
+    dp_kw = dict(kw, n_out=k)
+
+    def dp5():
+        orbits.integrate_orbit_adaptive(pot_r, sat, t_hi, t_hi + k * h_out,
+                                        **dp_kw)
+
+    orbits._dp45_step = counted
+    try:
+        dp5()
+        torch.cuda.synchronize()
+        substeps[0] = 0
+        t0 = time.perf_counter()
+        dp5()
+        torch.cuda.synchronize()
+        dp_wall = 1e3 * (time.perf_counter() - t0)
+        n_sub = substeps[0]
+        n_dp5, dev_dp5 = profile_launches(dp5)
+    finally:
+        orbits._dp45_step = step
+    # a force on the spray's ensemble: MWPotential22 + the moving King,
+    # and MWPotential22 alone
+    x = torch.tensor(ics[:, :3], dtype=torch.float32, device=dev)
+    n_force, dev_force = profile_launches(lambda: pot.force(x, t_start))
+    mw32 = orbits.field_on(mw, dev, torch.float32)
+    n_mw, dev_mw = profile_launches(lambda: mw32.force(x, t_start))
+    log(f"(m) spray (stream_in_mw.py, {SPRAY_RUN['num_particles']} "
+        f"particles, {n_steps} steps, float32): {wall:.2f} s wall; rewind "
+        f"{timed['rewind']:.2f} s, forward ensemble {timed['forward']:.2f} "
+        f"s; stream extent {np.round(extent, 2)} kpc")
+    log(f"(m) spray RK4 step ({len(ics)} particles): {rk4_ms:.3f} ms wall, "
+        f"{n_rk4 / k:.1f} launches, {dev_rk4 / k:.3f} device ms, busy "
+        f"{dev_rk4 / k / rk4_ms:.3f}; a force {n_force} launches, "
+        f"{dev_force:.3f} device ms (MWPotential22 alone {n_mw}, "
+        f"{dev_mw:.3f})")
+    log(f"(m) spray DP5(4) substep (1 orbit): {dp_wall / n_sub:.3f} ms "
+        f"wall, {n_dp5 / n_sub:.1f} launches, busy {dev_dp5 / dp_wall:.3f}; "
+        f"{n_sub / k:.2f} substeps an output node")
+
+
+def m_restricted(dev):
+    """(m) 3: restricted N-body of the spray's cluster on the card."""
+    from nbody_streams_tpu_torch.fast_sims import run_restricted_nbody
+    from nbody_streams_tpu_torch.potentials import load_potential_ini
+
+    mw = load_potential_ini(MW22)
+    kw = {k: SPRAY_CASE[k] for k in ("initmass", "sat_cen_present",
+                                     "scaleradius", "prog_pot_kind", "W0",
+                                     "time_end")}
+    t0 = time.perf_counter()
+    res = run_restricted_nbody(mw, num_particles=RESTRICTED_N,
+                               time_total=RESTRICTED_TIME,
+                               n_steps=RESTRICTED_STEPS,
+                               dtype=torch.float32, **kw)
+    wall = time.perf_counter() - t0
+    bm = res["bound_mass"]
+    check(res["part_xv"].shape[1] == RESTRICTED_N
+          and np.isfinite(res["part_xv"]).all(), "restricted: not finite")
+    # non-increasing while the refit runs: below its threshold (10 bound
+    # particles, restricted.py) the potential is no longer refit and the
+    # count of a dissolved cluster's last stars may tick up
+    floor = 10 * kw["initmass"] / RESTRICTED_N
+    rises = np.flatnonzero(np.diff(bm) > 0)
+    check(bm[-1] < kw["initmass"] and (bm[rises + 1] <= floor).all(),
+          f"restricted: bound mass rises above the refit threshold "
+          f"{floor:.4g}: {bm}")
+    n_chunks = RESTRICTED_STEPS // 10
+    log(f"(m) run_restricted_nbody ({RESTRICTED_N} particles, "
+        f"{RESTRICTED_STEPS} steps over {RESTRICTED_TIME} time units in "
+        f"{n_chunks} chunks, float32): "
+        f"{wall:.2f} s ({1e3 * wall / n_chunks:.1f} ms a chunk); bound "
+        f"mass {bm[0]:.4g} -> {bm[-1]:.4g} of {kw['initmass']:.4g} over "
+        f"{len(bm)} saves, {len(rises)} rises, all at or below "
+        f"{floor:.4g}")
+
+
+def m_unbinding(dev):
+    """(m) 4: iterative unbinding, both call forms, at N = 1,048,576."""
+    from nbody_streams_tpu_torch.utils import iterative_unbinding
+    from nbody_streams_tpu_torch.utils import main as umain
+
+    n = N_UNBIND
+    xv, m = plummer_case(n, 8)
+    rng = np.random.default_rng(8)
+    kicked = rng.choice(n, n // 10, replace=False)
+    r = np.linalg.norm(xv[kicked, :3], axis=1)
+    v_esc = np.sqrt(2 * G * m.sum() / np.sqrt(r ** 2 + 1.0))
+    u = rng.normal(size=(len(kicked), 3))
+    xv[kicked, 3:] = 1.5 * v_esc[:, None] * u / np.linalg.norm(
+        u, axis=1, keepdims=True)
+    pos, vel = xv[:, :3], xv[:, 3:]
+
+    # each potential: its wall time (solver build, host copies and the
+    # float64 read-back included), its sources and its output; and, by CUDA
+    # events around DirectGravity.potential alone, the kernel's time
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+
+    calls, kernel_ms = [], []
+    direct, potential = umain._direct_potential, DirectGravity.potential
+
+    def timed_potential(self, x, order=None):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = potential(self, x, order)
+        end.record()
+        torch.cuda.synchronize()
+        kernel_ms.append((len(x), start.elapsed_time(end)))
+        return out
+
+    def timed(pos_s, mass_s, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = direct(pos_s, mass_s, *args)
+        calls.append({"n": len(pos_s), "wall_ms": 1e3 * (
+            time.perf_counter() - t0), "phi": out, "pos": pos_s,
+            "mass": mass_s})
+        return out
+
+    mufu = mufu_rate(dev)
+    zero_launches()
+    umain._direct_potential = timed
+    DirectGravity.potential = timed_potential
+    try:
+        t0 = time.perf_counter()
+        native, info = iterative_unbinding(pos, vel, m, softening=H, G=G)
+        native_s = time.perf_counter() - t0
+        native_calls = list(calls)
+        calls.clear()
+        t0 = time.perf_counter()
+        (ref,), cp, cv = iterative_unbinding(
+            pos, vel, m, potential_compute_method="direct", softening=H,
+            G=G, verbose=False, return_history=False)
+        ref_s = time.perf_counter() - t0
+        ref_calls = list(calls)
+    finally:
+        umain._direct_potential = direct
+        DirectGravity.potential = potential
+    launches = read_launches()
+    n_calls = len(native_calls) + len(ref_calls)
+    check(launches["single"] == n_calls and len(kernel_ms) == n_calls,
+          f"unbinding launches {launches}, {len(kernel_ms)} timed, for "
+          f"{n_calls} potentials")
+    for form, mask in (("native", native), ("reference", ref.astype(bool))):
+        check(not mask[kicked].any(), f"{form}: a kicked particle is bound")
+        rest = np.setdiff1d(np.arange(n), kicked)
+        check(mask[rest].mean() > 0.8,
+              f"{form}: {mask[rest].mean():.3f} of the rest bound")
+
+    # each form's last potential against the float64 sum over the same
+    # sources (the positions and masses that call was given) at a seeded
+    # sample of 32,768 targets: max |err| / max |fp64| within 3e-6, the
+    # tree tier's tolerance.  The final masks against the same criterion
+    # in float64: they may differ only where |E| is within that bound.
+    # native: it converged, so its last call's sources are the final bound
+    # set; reference: its final mask is E < 0 under its last potential
+    check(info["removed_per_iter"][-1] == 0
+          and native_calls[-1]["n"] == native.sum(),
+          f"native unbinding did not converge: {info}")
+    last = native_calls[-1]
+    rows = np.sort(rng.choice(last["n"], min(last["n"], 32768),
+                              replace=False))
+    sb = np.flatnonzero(native)[rows]
+    v0 = (vel[native] * m[native, None]).sum(0) / m[native].sum()
+    kin = 0.5 * ((vel[sb] - v0) ** 2).sum(1)
+    checks = {"native": (last, rows, kin, native[sb])}
+    last = ref_calls[-1]
+    sample = np.sort(rng.choice(n, min(n, 32768), replace=False))
+    kin = 0.5 * ((vel[sample] - cv) ** 2).sum(1)
+    checks["reference"] = (last, sample, kin, ref[sample].astype(bool))
+    for form, (call, idx, kin, got_mask) in checks.items():
+        p32 = call["phi"][idx]
+        p64 = phi64_at(call["pos"], G * np.asarray(call["mass"]), H, idx,
+                       dev)
+        tol = 3e-6 * np.abs(p64).max()
+        err = np.abs(p32 - p64).max()
+        check(np.isfinite(p32).all() and err <= tol,
+              f"{form}: potential vs fp64 at N={call['n']}: max |err| "
+              f"{err:.3e} > 3e-6 * max |fp64| = {tol:.3e}")
+        e64 = p64 + kin
+        differ = (e64 < 0) != got_mask
+        check((np.abs(e64[differ]) <= tol).all(),
+              f"{form}: {int(differ.sum())} of the sample disagree with "
+              f"the fp64 criterion beyond {tol:.3e} of E = 0")
+        log(f"(m) unbinding {form}: last potential at {len(idx)} sampled "
+            f"particles vs fp64 over its {call['n']} sources, rel err "
+            f"{err / np.abs(p64).max():.2e} (tol 3e-6); mask vs the fp64 "
+            f"criterion: {int(differ.sum())} differ, all within {tol:.3e} "
+            f"of E = 0")
+
+    # row 2's potential form at the first iteration's shape, against its
+    # bound (N^2 pairs: 14 FP32 operations and one rsqrt a pair)
+    ms = min(t for nn, t in kernel_ms if nn == n)
+    pairs = float(n) * n
+    b = bound(pairs * POT_FLOPS["plummer"], 16 * n * 2, pairs, mufu)
+    log(f"(m) iterative_unbinding at N={n} (a seeded tenth kicked to 1.5 "
+        f"v_esc): native {info['iterations']} iterations in "
+        f"{native_s:.2f} s, bound {native.mean():.4f}; reference form "
+        f"{len(ref_calls)} potentials in {ref_s:.2f} s, bound "
+        f"{ref.mean():.4f}; a potential's wall ms (solver build, copies "
+        f"and read-back included) "
+        + ", ".join(f"{c['wall_ms']:.1f}" for c in native_calls + ref_calls)
+        + "; DirectGravity.potential ms (CUDA events) "
+        + ", ".join(f"{t:.1f}" for _, t in kernel_ms)
+        + f"; launches {launches}")
+    log(f"(m) row 2 potential form (Plummer, self-masked) at N={n}: "
+        f"{ms:.2f} ms, {describe(b, ms)}")
+    return {"unbinding": launches}
+
+
+def phase_m(dev):
+    """The drop-in surface, the tree tier, stream generation and
+    unbinding on the card; the launches of its run paths."""
+    times = [time.perf_counter()]
+    launches = m_tree(dev)
+    times.append(time.perf_counter())
+    m_spray(dev)
+    times.append(time.perf_counter())
+    m_restricted(dev)
+    times.append(time.perf_counter())
+    launches.update(m_unbinding(dev))
+    times.append(time.perf_counter())
+    log("(m) wall " + ", ".join(
+        f"{k} {b - a:.1f} s" for k, a, b in zip(
+            ("tree", "spray", "restricted", "unbinding"), times, times[1:]))
+        + f", total {times[-1] - times[0]:.1f} s")
+    return launches
+
 def phase_l(dev):
     """The potential forms of the direct kernels on the card: checked
     against their plain versions and the fp64 oracle, timed by CUDA
@@ -1583,6 +2131,7 @@ def main():
     df_stats, df_launches = phase_j(dev)
     scf_stats, scf_launches = phase_k(dev)
     pot_stats = phase_l(dev)
+    m_launches = phase_m(dev)
     slots = pot_stats["slots"]
     # no single PyTorch call computes a softened all-pairs sum or an
     # fma / rsqrt chain: library_ms is null for every kernel
@@ -1599,7 +2148,7 @@ def main():
     # launches the single pass once)
     paths = {"bench": launches, **ext_launches, **df_launches,
              "quasispherical_run": scf_launches["quasispherical_run"],
-             "scf_ladder": scf_launches["scf_ladder"]}
+             "scf_ladder": scf_launches["scf_ladder"], **m_launches}
 
     def row(name, key, replaces, st):
         by_path = {k: p[key] for k, p in paths.items()}

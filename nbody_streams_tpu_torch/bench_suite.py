@@ -210,7 +210,7 @@ def main_sharded(argv=None):
     ported yet."""
     raise NotImplementedError(
         "the multi-device ring is not ported yet (ROADMAP.md Queue 1 "
-        "item 8), so the suite has no sharded row")
+        "item 6), so the suite has no sharded row")
 
 
 if __name__ == "__main__":

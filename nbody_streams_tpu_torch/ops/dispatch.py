@@ -43,7 +43,7 @@ _NOT_PORTED = {
     "xla": "the TPU-only XLA two-pass backend is not ported (ROADMAP.md, "
            "'Do not port')",
     "sharded": "the multi-device ring is not ported yet (ROADMAP.md "
-               "Queue 1 item 8)",
+               "Queue 1 item 6)",
 }
 
 

@@ -7,7 +7,8 @@ Snapshot and restart files are the JAX package's formats (``nbody_io``),
 so a run started by either package resumes in the other.  Self-gravity is
 ``DirectGravity`` or the solver a ``solver_factory`` builds (the SCF tier);
 an external field and a ``ForceExtra`` (the dynamical friction) add their
-terms.  Not ported: multi-device ``devices`` and ``profile_dir``.
+terms.  ``profile_dir`` traces the chunks with ``torch.profiler``.  Not
+ported: multi-device ``devices``.
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ from .nbody_io import (
 from .ops.dispatch import DirectGravity
 from .species import Species
 
-__all__ = ["run_nbody"]
+__all__ = ["run_nbody", "run_nbody_tpu",
+           "run_nbody_gpu", "run_nbody_cpu"]
 
 # grace added to the boundary-work watchdog deadline (fetch + energy
 # eval); module-level so tests can shrink it
@@ -138,6 +140,33 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@contextlib.contextmanager
+def _profiled(profile_dir, device: torch.device):
+    """``torch.profiler`` around the run's chunks when ``profile_dir`` is
+    set (CPU activity, and CUDA activity on the card); the Chrome trace
+    is written into ``profile_dir`` on the way out, as the JAX package's
+    ``jax.profiler.start_trace`` / ``stop_trace`` pair does."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    try:
+        yield
+    finally:
+        _synchronize(device)
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(str(
+            out / f"nbody_trace_{pytime.strftime('%Y%m%d-%H%M%S')}.json"))
+
+
 def _snapshot_schedule(total_steps: int, snapshots: int) -> np.ndarray:
     if snapshots > 1:
         steps = np.round(np.linspace(0, total_steps, snapshots)).astype(int)
@@ -204,8 +233,11 @@ def run_nbody(
       called with the resolved device in place of building
       ``DirectGravity`` (how ``run_simulation(method='scf')`` installs the
       SCF tier); ``impl``/``kernel``/``block_size`` then do not apply.
-    * ``devices`` with more than one device, and ``profile_dir``, are not
-      ported yet and raise ``NotImplementedError``.
+    * ``profile_dir``: the chunks run under ``torch.profiler`` (CPU and,
+      on the card, CUDA activity), and a Chrome trace is written into
+      ``profile_dir`` when the loop ends, a failing run's included.
+    * ``devices`` with more than one device is not ported yet and raises
+      ``NotImplementedError``.
     """
     validate_kernel(kernel)
     validate_precision(precision)
@@ -217,11 +249,7 @@ def run_nbody(
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
             "multi-device runs are not ported yet (ROADMAP.md Queue 1 "
-            "item 8)")
-    if profile_dir:
-        raise NotImplementedError(
-            "profile_dir is not ported yet; trace with torch.profiler "
-            "around the call instead")
+            "item 6)")
 
     phase_space = np.asarray(phase_space, np.float64)
     if phase_space.ndim != 2 or phase_space.shape[1] != 6:
@@ -411,78 +439,83 @@ def run_nbody(
 
     t_wall0 = pytime.perf_counter()
     current = start_step
-    for boundary in boundaries:
-        n_steps = boundary - current
-        if n_steps <= 0:
-            continue
-        done = 0
-        while done < n_steps:
-            s = min(_WATCH_STEPS if step_timeout_s else n_steps,
-                    n_steps - done)
-            if step_timeout_s:
-                with _ChunkWatchdog(step_timeout_s * s + _CHUNK_GRACE_S,
-                                    emergency_restart):
+    # a watchdog interrupt or a NaN abort still writes the trace: that
+    # failing run is the one being profiled
+    with _profiled(profile_dir, device):
+        for boundary in boundaries:
+            n_steps = boundary - current
+            if n_steps <= 0:
+                continue
+            done = 0
+            while done < n_steps:
+                s = min(_WATCH_STEPS if step_timeout_s else n_steps,
+                        n_steps - done)
+                if step_timeout_s:
+                    with _ChunkWatchdog(step_timeout_s * s + _CHUNK_GRACE_S,
+                                        emergency_restart):
+                        state = run_chunk(step_fn, state, s, presort=presort,
+                                          presort_every=presort_every)
+                        _synchronize(device)
+                else:
                     state = run_chunk(step_fn, state, s, presort=presort,
                                       presort_every=presort_every)
-                    _synchronize(device)
-            else:
-                state = run_chunk(step_fn, state, s, presort=presort,
-                                  presort_every=presort_every)
-            done += s
-            if step_timeout_s:
-                with boundary_guard():
-                    last_xv = fetch_xv(state)
-                wd_step = current + done
-                wd_t = time_start + wd_step * dt
-        current = boundary
-        t_now = time_start + current * dt
+                done += s
+                if step_timeout_s:
+                    with boundary_guard():
+                        last_xv = fetch_xv(state)
+                    wd_step = current + done
+                    wd_t = time_start + wd_step * dt
+            current = boundary
+            t_now = time_start + current * dt
 
-        due_snap = (snapshot_counter < len(snap_steps)
-                    and current >= snap_steps[snapshot_counter])
-        due_restart = (restart_interval and current % restart_interval == 0
-                       ) or current == total_steps
-        # snapshots-off boundaries exist only as NaN-gate checks
-        due_check = nan_check and not save_snapshots
-        if due_snap or due_restart or debug_energy or due_check:
-            # the watchdog path already fetched this exact state
-            xv_host = last_xv if step_timeout_s else fetch_xv(state)
-            last_xv = xv_host
-            if nan_check and not np.isfinite(xv_host).all():
-                # the diagnostic payload goes to a SEPARATE file: the last
-                # good restart.npz must survive the abort
-                _save_restart(xv_host, t_now, current, output_path,
-                              snapshot_counter,
-                              filename="restart_nanabort.npz",
-                              **restart_kwargs)
-                raise FloatingPointError(
-                    f"Non-finite phase space at step {current}; offending "
-                    f"state saved to {output_path}/restart_nanabort.npz "
-                    "(the last good restart.npz is untouched — rerun with "
-                    "continue_run=True to resume from it)")
-            while (snapshot_counter < len(snap_steps)
-                   and current >= snap_steps[snapshot_counter]):
-                if save_snapshots:
-                    write_snapshot(xv_host, snapshot_counter, t_now)
-                snapshot_counter += 1
-            if due_restart:
-                _save_restart(xv_host, t_now, current, output_path,
-                              snapshot_counter, **restart_kwargs)
-        if verbose:
-            elapsed = pytime.perf_counter() - t_wall0
-            steps_done = current - start_step
-            rate = steps_done / elapsed if elapsed > 0 else 0.0
-            line = (f"  step {current:>7}/{total_steps} | t={t_now:.4e} "
-                    f"| {rate:.1f} steps/s | "
-                    f"avg {1e3 * elapsed / max(steps_done, 1):.1f} ms/step")
-            if debug_energy and e_ref is not None:
-                with boundary_guard():
-                    ke, pe = system_energy(state, solver, solver.mass)
-                    ke, pe = float(ke), float(pe)
-                etot = ke + pe
-                q = f"{ke / abs(pe):.3f}" if pe else "inf"
-                de = (etot - e_ref) / abs(e_ref) if e_ref else etot - e_ref
-                line += f" | Q={q} dE/E={de:+.2e}"
-            print(line, flush=True)
+            due_snap = (snapshot_counter < len(snap_steps)
+                        and current >= snap_steps[snapshot_counter])
+            due_restart = (restart_interval and current % restart_interval == 0
+                           ) or current == total_steps
+            # snapshots-off boundaries exist only as NaN-gate checks
+            due_check = nan_check and not save_snapshots
+            if due_snap or due_restart or debug_energy or due_check:
+                # the watchdog path already fetched this exact state
+                xv_host = last_xv if step_timeout_s else fetch_xv(state)
+                last_xv = xv_host
+                if nan_check and not np.isfinite(xv_host).all():
+                    # the diagnostic payload goes to a SEPARATE file: the last
+                    # good restart.npz must survive the abort
+                    _save_restart(xv_host, t_now, current, output_path,
+                                  snapshot_counter,
+                                  filename="restart_nanabort.npz",
+                                  **restart_kwargs)
+                    raise FloatingPointError(
+                        f"Non-finite phase space at step {current}; "
+                        "offending state saved to "
+                        f"{output_path}/restart_nanabort.npz (the last good "
+                        "restart.npz is untouched — rerun with "
+                        "continue_run=True to resume from it)")
+                while (snapshot_counter < len(snap_steps)
+                       and current >= snap_steps[snapshot_counter]):
+                    if save_snapshots:
+                        write_snapshot(xv_host, snapshot_counter, t_now)
+                    snapshot_counter += 1
+                if due_restart:
+                    _save_restart(xv_host, t_now, current, output_path,
+                                  snapshot_counter, **restart_kwargs)
+            if verbose:
+                elapsed = pytime.perf_counter() - t_wall0
+                steps_done = current - start_step
+                rate = steps_done / elapsed if elapsed > 0 else 0.0
+                line = (f"  step {current:>7}/{total_steps} | t={t_now:.4e} "
+                        f"| {rate:.1f} steps/s | "
+                        f"avg {1e3 * elapsed / max(steps_done, 1):.1f} "
+                        "ms/step")
+                if debug_energy and e_ref is not None:
+                    with boundary_guard():
+                        ke, pe = system_energy(state, solver, solver.mass)
+                        ke, pe = float(ke), float(pe)
+                    etot = ke + pe
+                    q = f"{ke / abs(pe):.3f}" if pe else "inf"
+                    de = (etot - e_ref) / abs(e_ref) if e_ref else etot - e_ref
+                    line += f" | Q={q} dE/E={de:+.2e}"
+                print(line, flush=True)
 
     with boundary_guard():
         xv_final = fetch_xv(state)
@@ -500,3 +533,32 @@ def run_nbody(
                   f"({steps_done / wall:.1f} steps/s, "
                   f"{1e3 * wall / steps_done:.2f} ms/step)")
     return xv_final
+
+
+def run_nbody_tpu(*args, **kwargs):
+    """Accelerator-pinned driver (the JAX package's name; the reference's
+    ``run_nbody_gpu``): ``run_nbody`` with ``architecture='gpu'``."""
+    kwargs.setdefault("architecture", "gpu")
+    return run_nbody(*args, **kwargs)
+
+
+run_nbody_gpu = run_nbody_tpu
+
+
+def run_nbody_cpu(*args, **kwargs):
+    """CPU-pinned driver (the reference's ``run_nbody_cpu``): the torch
+    oracle on the CPU.
+
+    The reference's CPU-only knobs are accepted: ``method`` ('direct' or
+    'tree' — the reference's pyfalcon tree runs here as the exact direct
+    sum), ``theta`` (tree opening angle: exact here) and ``nthreads``
+    (torch manages its own thread pool) are validated and dropped."""
+    method = kwargs.pop("method", "direct")
+    if method not in ("direct", "tree"):
+        raise ValueError(f"unknown method {method!r} (use 'direct' or "
+                         "'tree')")
+    kwargs.pop("theta", None)
+    kwargs.pop("nthreads", None)
+    kwargs.setdefault("architecture", "cpu")
+    kwargs.setdefault("impl", "torch")
+    return run_nbody(*args, **kwargs)

@@ -5,14 +5,17 @@ assembly, kwarg routing, then ``run_nbody``.  Ported:
 
 * ``method='direct'``: O(N^2) direct summation through the CUDA kernels
   (``ops/dispatch.DirectGravity``);
+* ``method='tree'``: on one device the same exact direct sum, as the JAX
+  package's ``impl='sharded'`` is on a one-device mesh (the run keeps its
+  own ``kernel``);
 * ``method='scf'``: the Hernquist-Ostriker expansion (``ops/scf.py``),
   single-centre or one expansion per species group (``scf_groups``);
 * ``external_potential`` (e.g. from ``nbody_streams_tpu_torch.potentials``)
   and ``dynamical_friction=True`` (``friction.py``, the ``df_*``
   keywords).
 
-``method='tree'`` (the multi-device ring) is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``method='tree'`` over more than one device (the multi-device ring) is not
+ported yet and raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -49,11 +52,6 @@ _SCF_KW = {
     "scf_center", "scf_groups",
 }
 
-_NOT_PORTED = {
-    "tree": "method='tree' (the multi-device ring) is not ported yet "
-            "(ROADMAP.md Queue 1 item 8)",
-}
-
 
 def run_simulation(
     phase_space: np.ndarray,
@@ -81,7 +79,8 @@ def run_simulation(
 
     The surface of ``nbody_streams_tpu.run_simulation``; here
     ``architecture`` is 'gpu' or 'auto' (a CUDA device; each raises without
-    one) or 'cpu', and ``method`` is 'direct' or 'scf'.  Dynamical
+    one) or 'cpu', and ``method`` is 'direct', 'tree' (the exact direct sum
+    on one device) or 'scf'.  Dynamical
     friction takes the ``df_*`` keywords (``df_M_sat`` defaults to the
     total mass) and needs ``external_potential``; the SCF tier takes the
     ``scf_*`` keywords, ``scf_groups`` mapping species names (or slices)
@@ -95,9 +94,7 @@ def run_simulation(
         raise ValueError(
             f"architecture must be 'cpu', 'gpu' or 'auto', got "
             f"{architecture!r}")
-    if method in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[method])
-    if method not in ("direct", "scf"):
+    if method not in ("direct", "tree", "scf"):
         raise ValueError(
             f"method must be 'direct', 'tree' or 'scf', got {method!r}")
 
@@ -138,6 +135,9 @@ def run_simulation(
             f"df_* kwargs given but dynamical_friction=False: "
             f"{sorted(df_kwargs)}")
 
+    # method='tree' runs the direct path: the JAX package routes it to
+    # impl='sharded', the exact direct sum on a one-device mesh (more than
+    # one device raises in run_nbody)
     if method == "scf":
         direct_kwargs["solver_factory"] = _scf_factory(
             phase_space, species, direct_kwargs, scf_kwargs, G)

@@ -25,7 +25,10 @@ pair, and the potential forms' hot loop has no self-mask test.  The
 defaults of the entry
 points land on the card; the SCF tier stays within chip_smoke.SCF_TOL of
 float64 with TF32 switched on; the friction term runs without a host
-sync, within chip_smoke.DF_TOL of float64.
+sync, within chip_smoke.DF_TOL of float64.  The tree tier within 3e-6 of
+the fp64 oracle; the spray window and an orbit, float32 on the card,
+within chip_smoke.SPRAY_TOL of float64 on the CPU; unbinding's
+self-potential within 2e-6 of its plain version.
 """
 import copy
 
@@ -607,3 +610,72 @@ def test_friction_on_the_card_matches_fp64_without_sync(dev):
     a32, a64 = st32["a_df"].double().cpu(), st64["a_df"]
     assert float((a32 - a64).norm() / a64.norm()) < chip_smoke.DF_TOL
     assert torch.equal(st32["bound"].cpu(), st64["bound"])
+
+
+@pytest.mark.cuda
+def test_tree_gravity_on_the_card_matches_fp64(dev):
+    """tree_gravity_gpu on the card (its default) launches the single-pass
+    kernel twice (acceleration, self-masked potential) and stays within
+    3e-6 of the fp64 oracle."""
+    import nbody_streams_tpu_torch as nst
+    from nbody_streams_tpu_torch.ops.pairwise import compute_potential_direct
+
+    n = 4096
+    xv, m = make_plummer_sphere(n, M_total=1e9, a=1.0, seed=5)
+    before = cd.LAUNCHES["single"]
+    acc, phi = nst.tree_gravity_gpu(xv[:, :3], m, eps=H, G=G)
+    assert cd.LAUNCHES["single"] == before + 2
+    args = [torch.tensor(a, dtype=torch.float64, device=dev)
+            for a in (xv[:, :3], m, np.full(n, H))]
+    want = (compute_forces_direct(*args, G=G, kernel="plummer",
+                                  precision="float64"),
+            compute_potential_direct(*args, G=G, kernel="plummer",
+                                     precision="float64"))
+    for got, ref in zip((acc, phi), want):
+        assert got.dtype == np.float32
+        assert _rel(torch.as_tensor(got), ref.cpu()) < 3e-6
+
+
+@pytest.mark.cuda
+def test_spray_and_orbit_fp32_on_the_card_match_fp64_cpu(dev):
+    """The spray window (chip_smoke.spray_window, at 400 particles) and a
+    fixed-step orbit in MWPotential22, float32 on the card against float64
+    on the CPU within chip_smoke.SPRAY_TOL."""
+    from nbody_streams_tpu_torch import fast_sims as fs
+    from nbody_streams_tpu_torch.potentials import load_potential_ini
+
+    mw = load_potential_ini(chip_smoke.MW22)
+    mw_cpu = load_potential_ini(chip_smoke.MW22, device="cpu")
+    case = chip_smoke.spray_window(num_particles=400)
+    got = fs.create_particle_spray_stream(mw, **case, dtype=torch.float32)
+    want = fs.create_particle_spray_stream(mw_cpu, **case,
+                                           dtype=torch.float64, device="cpu")
+    sat = case["sat_cen_present"]
+    _, orb32 = fs.integrate_orbit(mw, sat, 0.0, -0.2, n_steps=200,
+                                  dtype=torch.float32)
+    _, orb64 = fs.integrate_orbit(mw_cpu, sat, 0.0, -0.2, n_steps=200,
+                                  dtype=torch.float64, device="cpu")
+    for key, a, b in (("rewind", got["prog_xv"], want["prog_xv"]),
+                      ("rewind", orb32, orb64),
+                      ("stream", got["part_xv"][:, -1],
+                       want["part_xv"][:, -1])):
+        assert np.isfinite(a).all()
+        for sl, tol in zip((slice(0, 3), slice(3, 6)),
+                           chip_smoke.SPRAY_TOL[key]):
+            err = np.abs(a[:, sl] - b[:, sl]).max() / np.abs(b[:, sl]).max()
+            assert err <= tol, (key, sl, err)
+
+
+@pytest.mark.cuda
+def test_self_potential_on_the_card_matches_plain(dev):
+    """Unbinding's direct self-potential on the card (the single-pass
+    kernel's potential form, one launch) within 2e-6 of its plain version
+    on the CPU."""
+    from nbody_streams_tpu_torch.utils.main import _self_potential
+
+    xv, m = make_plummer_sphere(5000, M_total=1e9, a=1.0, seed=6)
+    before = cd.LAUNCHES["single"]
+    got = _self_potential(xv[:, :3], m, softening=H, G=G)
+    assert cd.LAUNCHES["single"] == before + 1
+    want = _self_potential(xv[:, :3], m, softening=H, G=G, device="cpu")
+    assert np.abs(got - want).max() / np.abs(want).max() < 2e-6

@@ -330,7 +330,7 @@ def test_bench_suite_runs_on_cpu():
 
 
 def test_bench_suite_has_no_sharded_row():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         bench_suite.main_sharded()
 
 

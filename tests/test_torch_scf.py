@@ -237,8 +237,8 @@ def test_scf_guards_match_jax(tmp_path):
         sim(method="scf", precision="float32_fast", scf_nmax=2, scf_lmax=0)
     with pytest.raises(ValueError, match="unknown species"):
         sim(method="scf", scf_groups={"nope": {"a": 1.0}})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sim(method="tree")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        sim(method="tree", devices=["cuda:0", "cuda:1"])
     with pytest.raises(ValueError, match="method"):
         sim(method="fmm")
     if not torch.cuda.is_available():

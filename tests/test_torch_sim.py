@@ -143,6 +143,18 @@ def test_import_leaves_jax_out():
             "nbody_streams_tpu_torch.friction, nbody_streams_tpu_torch.df, "
             "nbody_streams_tpu_torch.ops.scf, "
             "nbody_streams_tpu_torch.fast_sims, "
+            "nbody_streams_tpu_torch.fast_sims.orbits, "
+            "nbody_streams_tpu_torch.fast_sims.spray, "
+            "nbody_streams_tpu_torch.fast_sims.restricted, "
+            "nbody_streams_tpu_torch.fast_sims._common, "
+            "nbody_streams_tpu_torch.tree, nbody_streams_tpu_torch.tree_gpu, "
+            "nbody_streams_tpu_torch.fields, "
+            "nbody_streams_tpu_torch.agama_helper, "
+            "nbody_streams_tpu_torch.utils, "
+            "nbody_streams_tpu_torch.utils.main, "
+            "nbody_streams_tpu_torch.utils.devices, "
+            "nbody_streams_tpu_torch.coords, "
+            "nbody_streams_tpu_torch.coords.streams, "
             "nbody_streams_tpu_torch.benchmarks.scf")
     code = (f"import sys, {mods}; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
@@ -151,14 +163,18 @@ def test_import_leaves_jax_out():
 
 
 def test_not_ported_options_raise(case, tmp_path):
-    """The tree method and the sharded impl still raise, naming their
-    ROADMAP item; the SCF tier and dynamical friction now run."""
+    """The sharded impl and more than one device still raise, naming their
+    ROADMAP item (the multi-device ring); the SCF tier, dynamical
+    friction, the one-device tree and profile_dir run (the last two are
+    held in tests/test_torch_compat.py)."""
     xv, species = case
     run = lambda **kw: tst.run_simulation(   # noqa: E731
         xv, species, 0.0, 2 * DT, DT, output_dir=str(tmp_path),
         verbose=False, save_snapshots=False, **kw)
-    for kw, item in ((dict(method="tree"), "item 8"),
-                     (dict(impl="sharded"), "item 8")):
+    two = ["cuda:0", "cuda:1"]
+    for kw, item in ((dict(impl="sharded"), "item 6"),
+                     (dict(method="tree", devices=two), "item 6"),
+                     (dict(devices=two), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             run(architecture="cpu", **kw)
     for kw in (dict(method="scf", scf_a=1.0),
@@ -166,8 +182,6 @@ def test_not_ported_options_raise(case, tmp_path):
                     external_potential=_fields(tst)["mw22"]())):
         got = run(architecture="cpu", overwrite=True, **kw)["dark"]
         assert got.shape == (N, 6) and np.isfinite(got).all()
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        run(architecture="cpu", profile_dir=str(tmp_path))
     with pytest.raises(ValueError, match="architecture"):
         run(architecture="tpu")
     with pytest.raises(ValueError, match="tpu"):
