@@ -89,12 +89,31 @@ restricted N-body) and unbinding.  Phases:
       tenth kicked past escape: ms an iteration by CUDA events, row 2's
       potential form against its bound, and the final masks against the
       criterion in fp64 at a sample of 32,768 particles
+  (n) the user's command-line workflow: nbody-torch-run in-process
+      (cli.main) at N = 100,000 for 1,000 steps of 2e-5 with restarts,
+      then --continue for 200 more: the restart file reads back at step
+      1,200, |dE/E| < 1e-4 from host float64 energies, the base and band
+      kernels ran; at that shape, the start and the final state's force
+      and self-masked potential through DirectGravity and both branches
+      of the sorted path against the float64 sum at CLI_SAMPLE targets,
+      and the single, base and band passes against their plain
+      versions; the final state rendered at 512^2 on the card against
+      the CPU with the same smoothing lengths (RENDER_TOL), the frame's
+      mass within MASS_TOL of its float64 value, the splat's ms (CUDA
+      events), launches and busy share (profiler); the native host
+      library: its build time, knn_radius at N = 2^20 equal to cKDTree
+      (KNN_TOL) with both times, the host CPU and thread count,
+      morton_argsort a permutation, and a render at 2^20 through 'auto'
+      (the native kNN) with the same checks; the port's
+      examples/plummer_stability.py at its own size (runpy, |dE/E| <
+      1e-4, finite profile drift); cli.bench_main([]) prints the bench
+      JSON line
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card, and
 the one before that a JSON object of the kernels: for the force kernels
-the launches of each run path of phases (d), (i), (j), (k) and (m) under
-``launches_by_path``, counted by kernel form (the base pass, the single
+the launches of each run path of phases (d), (i), (j), (k), (m) and (n)
+under ``launches_by_path``, counted by kernel form (the base pass, the single
 pass, the band pass) where the wrapper launches it, and in phase (g)'s
 measurement path for the roofline kernels; max error and times from
 (b)/(g)/(k)/(l) (tile_sol at full occupancy, the shape where it bounds
@@ -200,7 +219,6 @@ LADDER_TOL = 0.05
 # SPRAY_WINDOW output nodes and forward steps where the card's float32 is
 # held against the port's float64 on the CPU
 MW22 = "nbody_streams_tpu_torch/data/potentials/MWPotential22.ini"
-MW22_JAX = "nbody_streams_tpu/data/potentials/MWPotential22.ini"
 SPRAY_CASE = dict(initmass=2e4,
                   sat_cen_present=np.array([8.3, 0.2, 16.9, -52.0, -96.0,
                                             -8.0]),
@@ -229,15 +247,43 @@ def spray_window(**kw):
 
 
 # phase (m): the spray and restricted N-body runs at full width, cut in
-# depth to a quarter of the example's 2.0 time units (kpc / (km/s)) at its
-# step of 1e-3: their eager torch took ~93 (spray) and ~120 (restricted)
-# ms a step on an NVIDIA H100 80GB HBM3 at 700 W (~29 us a launch), so
-# the full 2,000 steps would hold the phase ~7 minutes.  Unbinding at
-# N = 2^20
-SPRAY_RUN = dict(SPRAY_CASE, time_total=0.5, n_steps=500)
+# depth from the example's 2.0 time units (kpc / (km/s)) at its step of
+# 1e-3: their eager torch took ~93 (spray) and ~120 (restricted) ms a step
+# on an NVIDIA H100 80GB HBM3 at 700 W (~29 us a launch), so the full
+# 2,000 steps would hold the phase ~7 minutes.  The spray runs an eighth
+# of them (250 steps) so that the whole script, phase (n) included, stays
+# near 400 s; restricted N-body a quarter.  Unbinding at N = 2^20
+SPRAY_RUN = dict(SPRAY_CASE, time_total=0.25, n_steps=250)
 RESTRICTED_N = 10_000
 RESTRICTED_TIME, RESTRICTED_STEPS = 0.5, 500
 N_UNBIND = 1_048_576
+# phase (n): the command-line workflow.  The README quick start's N and
+# softening with the bench case's step: at the quick start's dt = 1e-3 a
+# Plummer sphere with h = 0.05 drifts to |dE/E| ~ 2e-2 in 1,000 steps, past
+# the 1e-4 contract.  1,000 steps, then 200 more from the restart file
+CLI_ARGS = ["--n", "100000", "--softening", "0.05", "--dt", "2e-5",
+            "--architecture", "gpu", "--no-snapshots", "--restart-interval",
+            "250", "--debug-energy"]
+CLI_T_END, CLI_T_CONTINUE = 0.02, 0.024
+# the direct kernels at the CLI's shape (cli_kernel_checks): each kernel
+# against its plain version on the same operands within 2e-6 * max (phase
+# (b)'s Kahan tolerance), and the force and the self-masked potential
+# against the float64 sum over the same float32 positions at a seeded
+# sample of CLI_SAMPLE targets within 3e-6 * max (phase (b)'s
+# kernel-vs-oracle tolerance)
+CLI_SAMPLE = 4096
+# the render of a state on the card against the same call on the CPU with
+# the same smoothing lengths, max |card - cpu| / max |cpu| over the image:
+# float32 sums in another order (atomic adds on the card, in order on the
+# CPU).  The port and the JAX package, two orders on the CPU, differ by
+# ~3e-7 at N = 4,096 (tests/test_torch_viz.py); this allows ~30 times that
+RENDER_TOL = 1e-5
+RENDER_NPIX = 512
+# the mass inside the frame against its float64 value (frame_mass)
+MASS_TOL = 1e-5
+# the native kNN against cKDTree: both compute the same float64 distances
+KNN_TOL = 1e-12
+PLUMMER_EXAMPLE = "nbody_streams_tpu_torch/examples/plummer_stability.py"
 
 
 def log(msg):
@@ -309,11 +355,13 @@ def plummer_case(n, seed):
     return xv, m
 
 
-def sorted_operands(xv, m, dev):
+def sorted_operands(xv, m, dev, wide=False):
     """The sorted path's operands for equal masses m and h = H, as
     ``cuda_direct._self_sorted`` builds them: x-sorted targets and sources
     (spline), the band's start rows, its width nb, the source rows and the
-    widest band window (the two-pass branch runs where it is <= nb)."""
+    widest band window (the two-pass branch runs where it is <= nb).
+    ``wide`` widens nb to that window where it is wider, so that the two
+    passes sum the exact force at any state."""
     from nbody_streams_tpu_torch.ops import cuda_direct as cd
 
     n = len(m)
@@ -324,6 +372,8 @@ def sorted_operands(xv, m, dev):
     hinv = cd._soft_pre("spline", hs)
     first, max_width, rows = cd.band_window(ps[:, 0], hs.max())
     nb = cd.band_rows(rows)
+    if wide:
+        nb = max(nb, int(max_width))
     start = first.clamp(0, rows - nb).to(torch.int32).contiguous()
     return (cd._targets(ps, hinv), cd._sources(ps, gs, hinv, cd.TN), start,
             nb, rows, int(max_width))
@@ -1464,12 +1514,15 @@ def read_launches():
     return dict(cd.LAUNCHES)
 
 
-def phi64_at(pos, gm, soft, idx, dev, chunk=(2048, 65536)):
-    """float64 Plummer potential at ``pos[idx]`` from every particle of
-    (pos, G m, soft), the self pair left out (``ops.pairwise``'s
-    potential tile, in chunks of targets x sources)."""
-    from nbody_streams_tpu_torch.ops.pairwise import potential_tile
+def direct64_at(pos, gm, soft, idx, dev, kind="plummer", mode="pot",
+                chunk=(2048, 65536)):
+    """The float64 sum at ``pos[idx]`` over every particle of (pos, G m,
+    soft), the self pair left out (``ops.pairwise``'s tiles, in chunks of
+    targets x sources): the potential (len(idx),) for ``mode='pot'``, the
+    acceleration (len(idx), 3) for ``'acc'``."""
+    from nbody_streams_tpu_torch.ops.pairwise import accel_tile, potential_tile
 
+    tile = accel_tile if mode == "acc" else potential_tile
     f64 = dict(dtype=torch.float64, device=dev)
     p = torch.as_tensor(pos, **f64)
     g = torch.as_tensor(gm, **f64)
@@ -1479,11 +1532,11 @@ def phi64_at(pos, gm, soft, idx, dev, chunk=(2048, 65536)):
     out = []
     for t0 in range(0, len(idx), chunk[0]):
         ti = idx[t0:t0 + chunk[0]]
-        acc = torch.zeros(len(ti), **f64)
+        acc = 0.0
         for s0 in range(0, len(pos), chunk[1]):
             sl = slice(s0, s0 + chunk[1])
-            acc += potential_tile("plummer", p[ti], h[ti], ti, p[sl], g[sl],
-                                  h[sl], ids[sl])
+            acc = acc + tile(kind, p[ti], h[ti], ti, p[sl], g[sl], h[sl],
+                             ids[sl])
         out.append(acc)
     return torch.cat(out).cpu().numpy()
 
@@ -1879,8 +1932,8 @@ def m_unbinding(dev):
     checks["reference"] = (last, sample, kin, ref[sample].astype(bool))
     for form, (call, idx, kin, got_mask) in checks.items():
         p32 = call["phi"][idx]
-        p64 = phi64_at(call["pos"], G * np.asarray(call["mass"]), H, idx,
-                       dev)
+        p64 = direct64_at(call["pos"], G * np.asarray(call["mass"]), H,
+                          idx, dev)
         tol = 3e-6 * np.abs(p64).max()
         err = np.abs(p32 - p64).max()
         check(np.isfinite(p32).all() and err <= tol,
@@ -1934,6 +1987,340 @@ def phase_m(dev):
             ("tree", "spray", "restricted", "unbinding"), times, times[1:]))
         + f", total {times[-1] - times[0]:.1f} s")
     return launches
+
+def host_energy(xv, m, dev):
+    """KE + PE summed in float64 on the host, the potential from the
+    card's direct kernels (spline, h = H), as in phase (d)."""
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+
+    solver = DirectGravity(m, np.full(len(m), H), device=dev)
+    pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+    phi = solver.potential(pos).double().cpu().numpy()
+    return 0.5 * (m * (xv[:, 3:] ** 2).sum(1)).sum() + 0.5 * (m * phi).sum()
+
+
+def splat_args(pos2, m, h, extent, npix, dev, dtype=torch.float32):
+    """The arguments of ``viz.sph._splat`` for (N, 2) projected positions,
+    as ``render_surface_density`` builds them."""
+    x0, x1, y0, y1 = extent
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    return (t(pos2[:, 0]), t(pos2[:, 1]), t(m), t(h), t(x0), t(y0),
+            t((x1 - x0) / npix), t((y1 - y0) / npix), npix, npix, 9)
+
+
+def frame_mass(pos2, m, h, extent, npix):
+    """The mass the splat must deposit inside the frame, in float64 on the
+    CPU: all of it for the particles whose 9 x 9 stencil lies inside the
+    frame with a pixel to spare, and the plain splat in float64 of the
+    rest (those a frame edge cuts)."""
+    from nbody_streams_tpu_torch.viz.sph import _splat
+
+    x0, x1, y0, y1 = extent
+    ix = np.floor((pos2[:, 0] - x0) / ((x1 - x0) / npix))
+    iy = np.floor((pos2[:, 1] - y0) / ((y1 - y0) / npix))
+    inner = ((ix >= 5) & (ix < npix - 5) & (iy >= 5) & (iy < npix - 5))
+    edge = _splat(*splat_args(pos2[~inner], m[~inner], h[~inner], extent,
+                              npix, "cpu", torch.float64))
+    return float(m[inner].sum() + edge.sum())
+
+
+def render_checks(dev, pos, m, tag):
+    """(n) render ``pos`` at RENDER_NPIX^2 through ``auto`` on the card and
+    on the CPU with the same smoothing lengths: the images agree within
+    RENDER_TOL, the card's image holds the frame's mass within MASS_TOL;
+    the splat's CUDA-event ms, launches and busy share (profiler), the
+    whole call's wall ms, and whether two splats agree bitwise."""
+    from nbody_streams_tpu_torch.viz import sph
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, extent = sph.render_surface_density(pos, m, npix=RENDER_NPIX)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    h = sph.get_smoothing_lengths(pos[:, :2])
+    knn_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref, ext_cpu = sph.render_surface_density(pos, m, npix=RENDER_NPIX,
+                                              smoothing=h, arch="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    check(ext_cpu == extent and img.shape == (RENDER_NPIX, RENDER_NPIX)
+          and np.isfinite(img).all(), f"{tag}: render shape / extent")
+    err = np.abs(img - ref).max() / np.abs(ref).max()
+    area = (extent[1] - extent[0]) * (extent[3] - extent[2]) \
+        / RENDER_NPIX ** 2
+    want = frame_mass(pos[:, :2], m, h, extent, RENDER_NPIX)
+    mass_err = abs(img.sum() * area - want) / want
+    args = splat_args(pos[:, :2], m, h, extent, RENDER_NPIX, dev)
+    ms = cuda_ms(lambda: sph._splat(*args), 5)
+    n_launch, dev_ms = profile_launches(lambda: sph._splat(*args))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = sph._splat(*args)
+    torch.cuda.synchronize()
+    splat_wall = (time.perf_counter() - t0) * 1e3
+    bitwise = torch.equal(a, sph._splat(*args))
+    log(f"(n) render {tag}: N={len(m)} at {RENDER_NPIX}^2, card vs CPU "
+        f"{err:.3e} (tol {RENDER_TOL:.0e}); frame mass {want:.6e}, "
+        f"|image - frame| / frame {mass_err:.3e} (tol {MASS_TOL:.0e}); "
+        f"render wall {wall_ms:.1f} ms (kNN alone {knn_ms:.1f} ms, the "
+        f"CPU render {cpu_ms:.1f} ms); splat {ms:.3f} ms (CUDA events), "
+        f"{n_launch} launches, {dev_ms:.3f} device ms, busy share "
+        f"{dev_ms / splat_wall:.3f}; two card splats bitwise equal: "
+        f"{bitwise}")
+    check(err <= RENDER_TOL, f"{tag}: card vs CPU {err:.3e}")
+    check(mass_err <= MASS_TOL, f"{tag}: frame mass {mass_err:.3e}")
+    return {"wall_ms": wall_ms, "splat_ms": ms, "launches": n_launch,
+            "device_ms": dev_ms, "busy": dev_ms / splat_wall, "err": err,
+            "mass_err": mass_err, "bitwise": bitwise}
+
+
+def cli_kernel_checks(dev, states, m):
+    """(n) the direct kernels at the CLI's shape: the spline at h = H with
+    Kahan, as the CLI's solver runs them.  For each (tag, xv) of
+    ``states``: the force and the self-masked potential through
+    DirectGravity on the card, on whichever branch of the sorted path the
+    state takes, against the float64 sum at a seeded sample of CLI_SAMPLE
+    targets.  At the last state, both branches on the sorted operands (the
+    band widened to the state's window where the path's is too narrow):
+    each kernel against its plain version, and each branch's sum against
+    the same float64 sample."""
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+
+    n = len(m)
+    idx = np.sort(np.random.default_rng(11).choice(n, CLI_SAMPLE,
+                                                   replace=False))
+    rows_of = torch.as_tensor(idx, device=dev)
+    solver = DirectGravity(m, H, device=dev)
+    eps2 = solver.eps2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst = {"fp64": 0.0, "plain": 0.0}
+    taken = {}
+
+    def vs64(what, got, want):
+        rel = np.abs(got - want).max() / np.abs(want).max()
+        check(np.isfinite(got).all() and rel <= 3e-6,
+              f"{what} vs fp64 at N={n}: {rel:.2e} > 3e-6")
+        worst["fp64"] = max(worst["fp64"], rel)
+
+    def vs_plain(what, got, want):
+        rel, _ = rel_err(got, want)
+        check(torch.isfinite(got).all().item() and rel <= 2e-6,
+              f"{what} vs plain at N={n}: {rel:.2e} > 2e-6")
+        worst["plain"] = max(worst["plain"], rel)
+
+    for tag, xv in states:
+        pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+        want = {mode: direct64_at(pos, G * m, H, idx, dev, "spline", mode,
+                                  chunk=(1024, 32768))
+                for mode in ("acc", "pot")}
+        before = dict(cd.BRANCHES)
+        for mode, fn in (("acc", solver.accel), ("pot", solver.potential)):
+            vs64(f"{tag}: DirectGravity {mode}",
+                 fn(pos)[rows_of].cpu().numpy(), want[mode])
+        taken[tag] = [k for k in before if cd.BRANCHES[k] > before[k]]
+        check(len(taken[tag]) == 1,
+              f"{tag}: DirectGravity took branches {taken[tag]}")
+
+    # the last state's sorted operands
+    order = cd.slab_sort_key(pos)
+    tgt, src, start, nb, rows, width = sorted_operands(xv, m, dev,
+                                                       wide=True)
+    ns = src.shape[1]
+
+    def unsorted(out_s):
+        out = torch.empty_like(out_s)
+        out[order] = out_s
+        return out[rows_of].cpu().numpy()
+
+    for mode in ("acc", "pot"):
+        mask = mode == "pot"
+        args = (tgt, src, "spline", mode, True, eps2, mask)
+        single = cd._direct_tile(*args)
+        vs_plain(f"single pass {mode}", single, cd._direct_tile_reference(
+            *args, splits=cd.split_count("direct", n, ns, sms)))
+        args = (tgt, src, "newtonian", mode, True, eps2, mask, nb, start)
+        base = cd._direct_tile(*args)
+        vs_plain(f"base pass {mode}", base, cd._direct_tile_reference(
+            *args, splits=cd.split_count("direct", n, ns, sms, nb, cd.TN)))
+        args = (tgt, src, start, mode, True, eps2, mask, cd.TM, cd.TN, nb)
+        band = cd._band(*args)
+        vs_plain(f"band pass {mode}", band, cd._band_reference(
+            *args, cd.split_count("band", n, ns, sms, nb, cd.TN)))
+        vs64(f"{tag}: single pass {mode}", unsorted(single), want[mode])
+        vs64(f"{tag}: two passes {mode}", unsorted(base + band), want[mode])
+    log(f"(n) direct kernels at the CLI's shape N={n} (spline, h={H}, "
+        f"Kahan): DirectGravity force and self-masked potential vs the "
+        f"fp64 sum at {CLI_SAMPLE} sampled targets, branch taken "
+        f"{taken}; at {states[-1][0]} the single pass and the two passes "
+        f"(nb={nb} of {rows} rows, widest window {width}) vs fp64 and each "
+        f"kernel vs its plain version: worst rel err {worst['fp64']:.2e} "
+        f"vs fp64 (tol 3e-6), {worst['plain']:.2e} vs plain (tol 2e-6)")
+    return taken
+
+
+def n_cli(dev):
+    """(n) a/b: nbody-torch-run on the card, continued from its restart
+    file, and a render of its final state."""
+    import nbody_streams_tpu_torch as nst
+    from nbody_streams_tpu_torch import cli, nbody_io
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    n = int(CLI_ARGS[CLI_ARGS.index("--n") + 1])
+    xv0, m = nst.make_plummer_sphere(n, M_total=1e9, a=1.0, seed=42069)
+    e0 = host_energy(xv0, m, dev)
+    with tempfile.TemporaryDirectory() as out:
+        zero_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(CLI_ARGS + ["--t-end", str(CLI_T_END),
+                                  "--output-dir", out])
+        t1 = time.perf_counter()
+        rc2 = cli.main(CLI_ARGS + ["--t-end", str(CLI_T_CONTINUE),
+                                   "--output-dir", out, "--continue"])
+        t2 = time.perf_counter()
+        launches = read_launches()
+        branches = dict(cd.BRANCHES)
+        check(rc == 0 and rc2 == 0, f"nbody-torch-run rc {rc}, {rc2}")
+        xv, t_end, step = nbody_io._load_restart(out)[:3]
+    steps = int(round(CLI_T_CONTINUE / 2e-5))
+    check(step == steps and abs(t_end - CLI_T_CONTINUE) < 1e-12,
+          f"restart at step {step}, t {t_end}")
+    check(xv.shape == (n, 6) and np.isfinite(xv).all(),
+          "CLI state not finite / wrong shape")
+    de = abs((host_energy(xv, m, dev) - e0) / e0)
+    log(f"(n) nbody-torch-run N={n}: 1000 steps in {t1 - t0:.2f} s, then "
+        f"--continue to step {step} in {t2 - t1:.2f} s (restart reads "
+        f"back); |dE/E| {de:.3e} (limit 1e-4) from host float64 energies; "
+        f"launches {launches}, branches of the sorted path {branches}")
+    check(de < 1e-4, f"CLI |dE/E| = {de:.3e}")
+    check(launches["base"] > 0 and launches["band"] > 0,
+          f"the CLI run missed a kernel: {launches}")
+    cli_kernel_checks(dev, [("t = 0", xv0), (f"t = {t_end:g}", xv)], m)
+    render = render_checks(dev, xv[:, :3], m, "CLI final state")
+    return {"cli": launches}, branches, render
+
+
+def host_cpu():
+    """The host CPU's model: /proc/cpuinfo's "model name", else
+    "unknown"."""
+    for ln in Path("/proc/cpuinfo").read_text().splitlines():
+        if ln.startswith("model name") and ":" in ln:
+            return ln.split(":", 1)[1].strip()
+    return "unknown"
+
+
+def n_native(dev):
+    """(n) c: the native host library on the card machine: its build, kNN
+    at N = 2^20 against cKDTree, the Morton sort, and a render at 2^20
+    through 'auto' (the native kNN)."""
+    import os
+
+    from nbody_streams_tpu_torch import native
+
+    cpu = host_cpu()
+    t0 = time.perf_counter()
+    check(native.build(verbose=True), "the native host library did not "
+          "build")
+    build_s = time.perf_counter() - t0
+    xv, m = plummer_case(N_UNBIND, 8)
+    pos = xv[:, :3]
+    t0 = time.perf_counter()
+    h_nat = native.knn_radius(pos, 32)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h_ck = native.knn_radius_ckdtree(pos, 32)
+    ck_s = time.perf_counter() - t0
+    knn_err = float(np.max(np.abs(h_nat - h_ck) / h_ck))
+    t0 = time.perf_counter()
+    order = native.morton_argsort(pos)
+    morton_s = time.perf_counter() - t0
+    log(f"(n) native host library: built in {build_s:.2f} s on {cpu}, "
+        f"{os.cpu_count()} threads (os.cpu_count); N={N_UNBIND} k=32: "
+        f"knn_radius {nat_s:.3f} s, cKDTree {ck_s:.3f} s, max rel diff "
+        f"{knn_err:.1e} (tol {KNN_TOL:.0e}); morton_argsort {morton_s:.3f} "
+        "s")
+    check(knn_err <= KNN_TOL, f"native kNN vs cKDTree {knn_err:.3e}")
+    check(np.array_equal(np.sort(order), np.arange(N_UNBIND)),
+          "morton_argsort is not a permutation")
+    render = render_checks(dev, pos, m, "N = 2^20 (native kNN)")
+    return {"build_s": build_s, "knn_s": nat_s, "ckdtree_s": ck_s,
+            "cpu": cpu, "render": render}
+
+
+def n_example(dev):
+    """(n) d: examples/plummer_stability.py of the port at its own size,
+    in-process."""
+    import os
+    import runpy
+
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    path = Path(PLUMMER_EXAMPLE).resolve()
+    argv, cwd = sys.argv, os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        sys.argv = [str(path)]
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            g = runpy.run_path(str(path), run_name="__main__")
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            branches = dict(cd.BRANCHES)
+        finally:
+            sys.argv = argv
+            os.chdir(cwd)
+    e0 = host_energy(g["xv"], g["masses"], dev)
+    de = abs((host_energy(g["xv1"], g["masses"], dev) - e0) / e0)
+    log(f"(n) {PLUMMER_EXAMPLE}: N={g['N']} {g['STEPS']} steps of "
+        f"{g['DT']} in {wall:.2f} s, |dE/E| {de:.3e} (limit 1e-4), "
+        f"density-profile drift {g['drift']:.4f}, launches {launches}, "
+        f"branches of the sorted path {branches}")
+    check(de < 1e-4, f"example |dE/E| = {de:.3e}")
+    check(np.isfinite(g["drift"]), "example's profile drift not finite")
+    check(launches["base"] + launches["single"] > 0,
+          f"the example ran no direct kernel: {launches}")
+    return {"plummer_example": launches}, branches
+
+
+def phase_n(dev):
+    """The user's command-line workflow on the card: nbody-torch-run and
+    its continuation, renders, the native library, the headline example
+    and the bench console entry; the launches of its run paths."""
+    import contextlib
+    import io
+
+    from nbody_streams_tpu_torch import cli
+
+    times = [time.perf_counter()]
+    launches, cli_branches, render = n_cli(dev)
+    times.append(time.perf_counter())
+    nat = n_native(dev)
+    times.append(time.perf_counter())
+    example, example_branches = n_example(dev)
+    launches.update(example)
+    times.append(time.perf_counter())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.bench_main([])
+    line = buf.getvalue().strip().splitlines()[-1]
+    rec = json.loads(line)
+    check(rc == 0 and rec["unit"] == "Gint/s" and rec["value"] > 0,
+          f"nbody-torch-bench: {line}")
+    log("(n) nbody-torch-bench printed:")
+    print(line, flush=True)
+    times.append(time.perf_counter())
+    log("(n) wall " + ", ".join(
+        f"{k} {b - a:.1f} s" for k, a, b in zip(
+            ("cli+render", "native+render", "example", "bench"), times,
+            times[1:])) + f", total {times[-1] - times[0]:.1f} s")
+    return launches, {"render_cli": render, "native": nat, "branches": {
+        "cli": cli_branches, "plummer_example": example_branches}}
+
 
 def phase_l(dev):
     """The potential forms of the direct kernels on the card: checked
@@ -2132,6 +2519,7 @@ def main():
     scf_stats, scf_launches = phase_k(dev)
     pot_stats = phase_l(dev)
     m_launches = phase_m(dev)
+    n_launches, n_stats = phase_n(dev)
     slots = pot_stats["slots"]
     # no single PyTorch call computes a softened all-pairs sum or an
     # fma / rsqrt chain: library_ms is null for every kernel
@@ -2148,7 +2536,8 @@ def main():
     # launches the single pass once)
     paths = {"bench": launches, **ext_launches, **df_launches,
              "quasispherical_run": scf_launches["quasispherical_run"],
-             "scf_ladder": scf_launches["scf_ladder"], **m_launches}
+             "scf_ladder": scf_launches["scf_ladder"], **m_launches,
+             **n_launches}
 
     def row(name, key, replaces, st):
         by_path = {k: p[key] for k, p in paths.items()}
@@ -2171,9 +2560,10 @@ def main():
     kernels[0]["slots"] = slots[
         "direct_tile_kernel<NEWTONIAN,ACC,Kahan,skip> (base pass)"]
     kernels[2]["slots"] = slots["band_kernel<ACC,Kahan> (band pass)"]
-    # which branch the sorted path picked on the DF runs
-    kernels[1]["branches_by_path"] = {k: df_stats[k]["branches"]
-                                      for k in df_launches}
+    # which branch the sorted path picked on the DF runs and phase (n)'s
+    kernels[1]["branches_by_path"] = {
+        **{k: df_stats[k]["branches"] for k in df_launches},
+        **n_stats["branches"]}
     # the two-set potential form of the single-pass kernel (the fit's
     # launch site; its launches from phase i's fit), timed at the fit's
     # shape in phase l

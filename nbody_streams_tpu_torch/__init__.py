@@ -14,9 +14,11 @@ friction (``friction``), DF sampling (``df``), King models
 roofline kernels in ``csrc/roofline.cu``, stream generation
 (``fast_sims``: orbits, particle spray, restricted N-body), coordinate
 frames (``coords``), the analysis toolkit (``utils``: profiles, fits,
-centres, unbinding) and the reference's drop-in names (the one-card tree
-tier in ``tree``, ``fields``, ``agama_helper``); the kernels are built
-with nvcc at first use.
+centres, unbinding), the reference's drop-in names (the one-card tree
+tier in ``tree``, ``fields``, ``agama_helper``), SPH surface-density
+maps and plots (``viz``), the host kNN library (``native``) and the
+``nbody-torch-run`` command line (``cli``); the kernels are built with
+nvcc, the host library with g++, at first use.
 """
 from .__version__ import __version__
 from .constants import G_DEFAULT, NBODY_UNITS, KERNEL_IDS
@@ -36,6 +38,7 @@ from . import fast_sims
 from . import potentials
 from . import utils
 from . import coords
+from . import viz
 from .utils.devices import get_device_info, device_alive
 from . import agama_helper   # reference module-path alias -> potentials
 from . import fields         # reference module-path alias -> ops
@@ -81,6 +84,7 @@ __all__ = [
     "fast_sims",
     "utils",
     "coords",
+    "viz",
     "agama_helper",
     "fields",
     "tree_gpu",

@@ -28,7 +28,10 @@ float64 with TF32 switched on; the friction term runs without a host
 sync, within chip_smoke.DF_TOL of float64.  The tree tier within 3e-6 of
 the fp64 oracle; the spray window and an orbit, float32 on the card,
 within chip_smoke.SPRAY_TOL of float64 on the CPU; unbinding's
-self-potential within 2e-6 of its plain version.
+self-potential within 2e-6 of its plain version.  The SPH render on the
+card within chip_smoke.RENDER_TOL of the same render on the CPU, holding
+the frame's mass within chip_smoke.MASS_TOL; the native host library's
+kNN on the card machine within chip_smoke.KNN_TOL of cKDTree.
 """
 import copy
 
@@ -679,3 +682,38 @@ def test_self_potential_on_the_card_matches_plain(dev):
     assert cd.LAUNCHES["single"] == before + 1
     want = _self_potential(xv[:, :3], m, softening=H, G=G, device="cpu")
     assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
+
+
+@pytest.mark.cuda
+def test_render_on_the_card_matches_cpu(dev):
+    from nbody_streams_tpu_torch.viz import sph
+
+    npix = chip_smoke.RENDER_NPIX
+    xv, m = make_plummer_sphere(65_536, M_total=1e9, a=1.0, seed=3)
+    pos = xv[:, :3]
+    h = sph.get_smoothing_lengths(pos[:, :2])
+    img, ext = sph.render_surface_density(pos, m, npix=npix, smoothing=h)
+    ref, ext_cpu = sph.render_surface_density(pos, m, npix=npix,
+                                              smoothing=h, arch="cpu")
+    assert ext == ext_cpu and np.isfinite(img).all()
+    assert _rel(torch.as_tensor(img), torch.as_tensor(ref)) \
+        <= chip_smoke.RENDER_TOL
+    area = (ext[1] - ext[0]) * (ext[3] - ext[2]) / npix ** 2
+    want = chip_smoke.frame_mass(pos[:, :2], m, h, ext, npix)
+    assert abs(img.sum() * area - want) / want <= chip_smoke.MASS_TOL
+    args = chip_smoke.splat_args(pos[:, :2], m, h, ext, npix, dev)
+    assert sph._splat(*args).is_cuda
+
+
+@pytest.mark.cuda
+def test_native_knn_on_the_card_machine(dev):
+    from nbody_streams_tpu_torch import native
+
+    assert native.build(verbose=False)
+    xv, _ = make_plummer_sphere(262_144, M_total=1e9, a=1.0, seed=8)
+    pos = xv[:, :3]
+    want = native.knn_radius_ckdtree(pos, 32)
+    got = native.knn_radius(pos, 32)
+    assert np.max(np.abs(got - want) / want) <= chip_smoke.KNN_TOL
+    order = native.morton_argsort(pos)
+    assert np.array_equal(np.sort(order), np.arange(len(pos)))

@@ -27,6 +27,8 @@ import nbody_streams_tpu_torch.potentials as TP
 torch.set_num_threads(2)
 
 F64 = dict(dtype=torch.float64, device="cpu")
+# the JAX package's copy of chip_smoke.MW22
+MW22_JAX = "nbody_streams_tpu/data/potentials/MWPotential22.ini"
 
 
 def _rel(got, want):
@@ -148,7 +150,7 @@ def test_spray_fp32_error_within_chip_tolerance():
     from nbody_streams_tpu_torch.potentials import load_potential_ini
 
     case = chip_smoke.spray_window(num_particles=400)
-    jmw = jini(chip_smoke.MW22_JAX)
+    jmw = jini(MW22_JAX)
     tmw = load_potential_ini(chip_smoke.MW22, device="cpu")
 
     def run(fs, pot, **kw):

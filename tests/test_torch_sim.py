@@ -155,10 +155,16 @@ def test_import_leaves_jax_out():
             "nbody_streams_tpu_torch.utils.devices, "
             "nbody_streams_tpu_torch.coords, "
             "nbody_streams_tpu_torch.coords.streams, "
-            "nbody_streams_tpu_torch.benchmarks.scf")
+            "nbody_streams_tpu_torch.benchmarks.scf, "
+            "nbody_streams_tpu_torch.viz, nbody_streams_tpu_torch.viz.sph, "
+            "nbody_streams_tpu_torch.viz.plots, "
+            "nbody_streams_tpu_torch.viz.sph_kernels, "
+            "nbody_streams_tpu_torch.viz.healpix, "
+            "nbody_streams_tpu_torch.native, nbody_streams_tpu_torch.cli")
     code = (f"import sys, {mods}; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'nbody_streams_tpu' not in sys.modules")
+            "assert 'nbody_streams_tpu' not in sys.modules; "
+            "assert 'matplotlib' not in sys.modules, 'matplotlib imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
