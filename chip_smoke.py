@@ -108,12 +108,32 @@ restricted N-body) and unbinding.  Phases:
       examples/plummer_stability.py at its own size (runpy, |dE/E| <
       1e-4, finite profile drift); cli.bench_main([]) prints the bench
       JSON line
+  (o) the multi-device ring over virtual shards of the card
+      (devices=['cuda:0'] * D) on the slab-sorted bench case: (o.1) the
+      ring at D = 1, 2, 4, 8, force and potential, within 2e-6 * max of
+      the one-card sorted path (rows 1 + 3) and within 3e-6 of the fp64
+      sum at RING_SAMPLE targets, every tile a kernel launch; (o.2) row
+      2's ring forms (spline and Newtonian force, potential with and
+      without the self mask) at the D = 4 tile shape against their plain
+      versions, timed by CUDA events, with their bounds; (o.3) the far
+      tiles at D = 4 and 8 equal to the count the slabs' x-intervals
+      give, and none on shuffled input; (o.4) run_simulation(method=
+      'tree', devices=['cuda:0'] * 4) at N = 65,537 (3 ghost rows), 100
+      steps: |dE/E| < 1e-4 from host float64 energies, the final state
+      within 1e-5 * max|x| of method='direct', the displacement within
+      1e-3 and the velocity change within 1e-4 of their max; then the
+      ring at the run's shape (n_local = 16,385, 3 ghost rows of h = 0)
+      at the start and final ghost-padded states within 2e-6 of the
+      one-card path and 3e-6 of fp64, and the last shard's force and
+      self-masked potential tiles against their plain versions; (o.5)
+      the strong-scaling table of benchmarks.ring_scaling beside the
+      one-card time
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card, and
 the one before that a JSON object of the kernels: for the force kernels
-the launches of each run path of phases (d), (i), (j), (k), (m) and (n)
-under ``launches_by_path``, counted by kernel form (the base pass, the single
+the launches of each run path of phases (d), (i), (j), (k), (m), (n) and
+(o) under ``launches_by_path``, counted by kernel form (the base pass, the single
 pass, the band pass) where the wrapper launches it, and in phase (g)'s
 measurement path for the roofline kernels; max error and times from
 (b)/(g)/(k)/(l) (tile_sol at full occupancy, the shape where it bounds
@@ -284,6 +304,15 @@ MASS_TOL = 1e-5
 # the native kNN against cKDTree: both compute the same float64 distances
 KNN_TOL = 1e-12
 PLUMMER_EXAMPLE = "nbody_streams_tpu_torch/examples/plummer_stability.py"
+# phase (o), the ring over virtual shards of the card: the shard counts,
+# the fp64 oracle's targets, the tile shape of row 2's ring forms (D = 4 at
+# the bench case), the run (3 ghost rows at D = 4) and its depth
+RING_DS = (1, 2, 4, 8)
+RING_SAMPLE = 4096
+RING_TILE_D = 4
+RING_RUN_N = 65_537
+RING_RUN_D = 4
+RING_RUN_STEPS = 100
 
 
 def log(msg):
@@ -2322,6 +2351,287 @@ def phase_n(dev):
         "cli": cli_branches, "plummer_example": example_branches}}
 
 
+def ring_far_count(x, d, h):
+    """The far tiles an acceleration of the ring over ``d`` shards takes:
+    the (target, source) shard pairs whose x-intervals lie farther apart
+    than h, from the slabs of ``x`` padded with zeros as the ring pads
+    them, in float32 as the ring compares (on the host)."""
+    nl = -(-len(x) // d)
+    x = np.concatenate([np.float32(x), np.zeros(nl * d - len(x),
+                                                np.float32)]).reshape(d, nl)
+    lo, hi = x.min(1), x.max(1)
+    gap = np.maximum(lo[:, None] - hi[None, :], lo[None, :] - hi[:, None])
+    return int((gap > np.float32(h)).sum())
+
+
+def o_forms(dev, pos, m):
+    """(o.2) row 2's two-set forms as the ring calls them, one tile each at
+    the D = RING_TILE_D tile shape of the sorted bench case: targets of
+    shard 1 against its own block (the spline near tile; the potential with
+    the self mask, as on ring step 0), against shard 2's (the potential
+    without it) and against shard 3's (the far Newtonian tile)."""
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    nl = len(m) // RING_TILE_D
+    gm = torch.tensor(m * G, dtype=torch.float32, device=dev)
+    pre = cd._soft_pre("spline", torch.full((len(m),), H,
+                                            dtype=torch.float32, device=dev))
+
+    def block(k):
+        sl = slice(k * nl, (k + 1) * nl)
+        return cd._sources(pos[sl], gm[sl], pre[sl], cd.BLOCK)
+
+    tgt = cd._targets(pos[nl:2 * nl], pre[nl:2 * nl])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mufu = mufu_rate(dev)
+    stats = {}
+    for label, law, mode, k, mask in (
+            ("spline acc (near)", "spline", "acc", 1, False),
+            ("newtonian acc (far)", "newtonian", "acc", 3, False),
+            ("spline pot, self mask (r = 0)", "spline", "pot", 1, True),
+            ("spline pot (r > 0)", "spline", "pot", 2, False)):
+        src = block(k)
+        args = (tgt, src, law, mode, True, 1e-15, mask)
+        splits = cd.split_count("direct", nl, src.shape[1], sms)
+        got = cd._direct_tile(*args)
+        want = cd._direct_tile_reference(*args, splits=splits)
+        rel, absolute = rel_err(got, want)
+        check(torch.isfinite(got).all().item() and rel < 2e-6,
+              f"(o.2) {label}: {rel:.2e} >= 2e-6 of its plain version")
+        ms = cuda_ms(lambda: cd._direct_tile(*args), 20)
+        plain_ms = cuda_ms(lambda: cd._direct_tile_reference(
+            *args, splits=splits), 2)
+        pairs = nl * src.shape[1]
+        flops = (PAIR_FLOPS if mode == "acc" else POT_FLOPS)[law]
+        b = bound(pairs * flops, nbytes(tgt, src, got), pairs, mufu)
+        stats[label] = dict(max_abs_err=absolute, rel=rel, ms=ms,
+                            plain_ms=plain_ms, splits=splits,
+                            shape=[nl, src.shape[1]], **b)
+        log(f"(o.2) {label} at {nl} x {src.shape[1]}, S={splits}: rel err "
+            f"{rel:.2e} (tol 2e-6), {ms:.4f} ms vs plain {plain_ms:.2f} ms;"
+            f" {describe(b, ms)}")
+    return stats
+
+
+def o_run_forces(dev, card, xr, mr, final):
+    """(o.4) the ring run's forces at its own shape: the ring over its
+    RING_RUN_D shards (n_local = 16,385, sources padded to whole tiles)
+    at the run's start and final states, ghost-padded as run_nbody pads
+    them (ghost rows frozen at the last particle's start), against the
+    one-card path and the fp64 sum at RING_SAMPLE targets; and the last
+    shard's tiles, which hold the ghosts (h = 0), against their plain
+    versions."""
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+
+    n = RING_RUN_N
+    h = np.full(n, H)
+    ring = DirectGravity(mr, h, G=G, impl="sharded",
+                         devices=[card] * RING_RUN_D)
+    one = DirectGravity(mr, h, G=G, impl="cuda", device=dev)
+    sd, pad = ring._sharded, ring.state_pad
+    check(pad == 3 and sd.use_kernels, f"(o.4) ring: {pad} ghost rows")
+    ghosts = torch.tensor(np.repeat(xr[-1:, :3], pad, 0),
+                          dtype=torch.float32, device=dev)
+    idx = np.sort(np.random.default_rng(1).choice(n, RING_SAMPLE,
+                                                  replace=False))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs = {}
+    for label, x in (("start", xr[:, :3]), ("final", final[:, :3])):
+        real = torch.tensor(x, dtype=torch.float32, device=dev)
+        padded = torch.cat([real, ghosts])
+        for mode, k in (("accel", "acc"), ("potential", "pot")):
+            got = getattr(ring, mode)(padded)
+            check(got.shape[0] == n + pad and torch.isfinite(got).all()
+                  .item(), f"(o.4) {label} {mode}: {tuple(got.shape)}")
+            rel, _ = rel_err(got[:n], getattr(one, mode)(real))
+            want64 = direct64_at(x, mr * G, H, idx, dev, "spline", k)
+            rel64 = (np.abs(got[:n].double().cpu().numpy()[idx] - want64)
+                     .max() / np.abs(want64).max())
+            check(rel < 2e-6 and rel64 < 3e-6,
+                  f"(o.4) ring {label} {mode}: {rel:.2e} vs one card (tol "
+                  f"2e-6), {rel64:.2e} vs fp64 (tol 3e-6)")
+            errs[f"{label}_{mode}"] = (rel, rel64)
+        nl, last = sd.n_local, RING_RUN_D - 1
+        tgt, src = sd._pack(last, padded[last * nl:(last + 1) * nl])
+        splits = cd.split_count("direct", nl, src.shape[1], sms)
+        for mode, mask in (("acc", False), ("pot", True)):
+            args = (tgt, src, "spline", mode, ring.kahan, ring.eps2, mask)
+            got = cd._direct_tile(*args)
+            rel, _ = rel_err(got, cd._direct_tile_reference(
+                *args, splits=splits))
+            check(torch.isfinite(got).all().item() and rel < 2e-6,
+                  f"(o.4) {label} last shard's {mode} tile ({nl} x "
+                  f"{src.shape[1]}, S={splits}): {rel:.2e} >= 2e-6 of its "
+                  "plain version")
+            errs[f"{label}_tile_{mode}"] = (rel, None)
+    log(f"(o.4) the ring at the run's shape ({RING_RUN_D} x {sd.n_local} "
+        f"rows, {pad} ghosts), start and final states, vs one card / fp64 "
+        f"at {RING_SAMPLE} targets (tol 2e-6 / 3e-6): " + ", ".join(
+            f"{k} {a:.2e}" + ("" if b is None else f" / {b:.2e}")
+            for k, (a, b) in errs.items())
+        + "; the last shard's tiles vs their plain versions (tol 2e-6)")
+    return errs
+
+
+def phase_o(dev):
+    """The multi-device ring over virtual shards of the card; the
+    launches of its two run paths and its numbers."""
+    import nbody_streams_tpu_torch as nst
+    from nbody_streams_tpu_torch.benchmarks import ring_scaling
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+    from nbody_streams_tpu_torch.parallel import sharded as sh
+
+    t_phase = time.perf_counter()
+    card = f"cuda:{torch.cuda.current_device()}"
+    xv0, m0 = plummer_case(N_BENCH, 2)
+    xv, m = sh.slab_sort_for_sharding(xv0, m0)
+    h = np.full(N_BENCH, H)
+    pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+
+    # (o.1) the ring against the one-card sorted path and the fp64 sum
+    one = DirectGravity(m, h, G=G, impl="cuda", device=dev)
+    check(one.spatial_sort_active, "the one-card reference is not sorted")
+    modes = {"accel": "acc", "potential": "pot"}
+    ref = {mode: getattr(one, mode)(pos) for mode in modes}
+    idx = np.sort(np.random.default_rng(0).choice(N_BENCH, RING_SAMPLE,
+                                                  replace=False))
+    ref64 = {mode: direct64_at(xv[:, :3], m * G, H, idx, dev, "spline", k)
+             for mode, k in modes.items()}
+    errs = {}
+    zero_launches()
+    for d in RING_DS:
+        ring = DirectGravity(m, h, G=G, impl="sharded", devices=[card] * d)
+        check(ring._sharded.use_kernels and ring.impl == "sharded",
+              f"the ring at D={d} is not on the kernel route")
+        before = read_launches()["single"]
+        for mode in modes:
+            got = getattr(ring, mode)(pos)
+            check(got.is_cuda and got.shape == ref[mode].shape
+                  and torch.isfinite(got).all().item(),
+                  f"(o.1) D={d} {mode}: {got.device} {tuple(got.shape)}")
+            rel, _ = rel_err(got, ref[mode])
+            rel64 = (np.abs(got.double().cpu().numpy()[idx] - ref64[mode])
+                     .max() / np.abs(ref64[mode]).max())
+            check(rel < 2e-6 and rel64 < 3e-6,
+                  f"(o.1) D={d} {mode}: {rel:.2e} vs one card (tol 2e-6), "
+                  f"{rel64:.2e} vs fp64 (tol 3e-6)")
+            errs[f"D{d}_{mode}"] = (rel, rel64)
+        check(read_launches()["single"] - before == 2 * d * d,
+              f"(o.1) D={d}: {read_launches()['single'] - before} kernel "
+              f"launches for 2 x {d * d} tiles")
+    ring_launches = read_launches()
+    check(ring_launches["base"] == ring_launches["band"] == 0,
+          f"the ring launched a sorted-path kernel: {ring_launches}")
+    log("(o.1) the ring over [cuda] * D vs the one-card sorted path / fp64 "
+        f"at {RING_SAMPLE} targets: " + ", ".join(
+            f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in errs.items())
+        + f" (tol 2e-6 / 3e-6); launches {ring_launches}")
+
+    # (o.2) row 2's forms at the ring's tile shape
+    forms = o_forms(dev, pos, m)
+
+    # (o.3) far tiles: sorted at D = 4 and 8 against the slab geometry,
+    # shuffled none
+    far = {}
+    pos0 = torch.tensor(xv0[:, :3], dtype=torch.float32, device=dev)
+    for label, d, p, x in (("sorted", 4, pos, xv[:, 0]),
+                           ("sorted", 8, pos, xv[:, 0]),
+                           ("shuffled", 8, pos0, xv0[:, 0])):
+        ring = DirectGravity(m if label == "sorted" else m0, h, G=G,
+                             impl="sharded", devices=[card] * d)
+        before = sh.TILES["newtonian"]
+        ring.accel(p)
+        got = sh.TILES["newtonian"] - before
+        want = ring_far_count(x, d, H)
+        check(got == want and (got > 0) == (label == "sorted"),
+              f"(o.3) {label} D={d}: {got} far tiles, the slabs give {want}")
+        far[f"{label}_D{d}"] = got
+        log(f"(o.3) {label} input, D={d}: {got} of {d * d} tiles far "
+            f"(slab geometry {want}; non-neighbours "
+            f"{d * d - d - 2 * (d - 1) if d > 2 else 0})")
+
+    # (o.4) method='tree' over four virtual shards, 3 ghost rows
+    xr, mr = plummer_case(RING_RUN_N, 2)
+    xr, mr = sh.slab_sort_for_sharding(xr, mr)
+    species = [nst.Species.dark(N=RING_RUN_N, mass=float(mr[0]),
+                                softening=H)]
+    finals, walls = {}, {}
+    for method in ("tree", "direct"):
+        kw = dict(devices=[card] * RING_RUN_D) if method == "tree" else {}
+        zero_launches()
+        with tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.perf_counter()
+            finals[method] = nst.run_simulation(
+                xr, species, 0.0, RING_RUN_STEPS * DT, DT,
+                architecture="gpu", method=method, output_dir=out_dir,
+                save_snapshots=False, verbose=False, **kw)["dark"]
+            walls[method] = time.perf_counter() - t0
+        if method == "tree":
+            run_launches = read_launches()
+    tiles = (RING_RUN_STEPS + 1) * RING_RUN_D ** 2
+    check(run_launches["single"] == tiles and run_launches["base"] == 0,
+          f"(o.4) the ring run launched {run_launches}, not {tiles} tiles")
+    tree = finals["tree"]
+    check(tree.shape == (RING_RUN_N, 6) and np.isfinite(tree).all(),
+          f"(o.4) ring run: {tree.shape}")
+    e0, e1 = host_energy(xr, mr, dev), host_energy(tree, mr, dev)
+    de = abs((e1 - e0) / e0)
+    direct = finals["direct"]
+    dx = (np.abs(tree[:, :3] - direct[:, :3]).max()
+          / np.abs(direct[:, :3]).max())
+    # the motion over the run, tree against direct: the displacement
+    # (float32 positions: one unit in the last place at max|x| ~ 240 is
+    # ~1e-4 of the largest displacement) and the velocity change, which
+    # the force alone makes
+    step = {k: (np.abs((tree - xr)[:, sl] - (direct - xr)[:, sl]).max()
+                / np.abs((direct - xr)[:, sl]).max())
+            for k, sl in (("dx", slice(0, 3)), ("dv", slice(3, 6)))}
+    check(de < 1e-4 and dx < 1e-5 and step["dx"] < 1e-3
+          and step["dv"] < 1e-4,
+          f"(o.4) ring run |dE/E| {de:.3e} (limit 1e-4), vs direct "
+          f"{dx:.2e} of max|x| (tol 1e-5), displacement {step['dx']:.2e} "
+          f"(tol 1e-3), velocity change {step['dv']:.2e} (tol 1e-4)")
+    log(f"(o.4) run_simulation(method='tree', devices=[cuda] * "
+        f"{RING_RUN_D}) at N={RING_RUN_N} (3 ghost rows), "
+        f"{RING_RUN_STEPS} steps: {walls['tree']:.2f} s (direct "
+        f"{walls['direct']:.2f} s), |dE/E| {de:.3e}, vs direct {dx:.2e} of "
+        f"max|x|, displacement {step['dx']:.2e}, velocity change "
+        f"{step['dv']:.2e} of their max; launches {run_launches}")
+    run_errs = o_run_forces(dev, card, xr, mr, tree)
+
+    # (o.5) the strong-scaling table beside the one-card sorted path, and
+    # for each the CUDA kernels of an evaluation and their device ms
+    # (profiler, over three evaluations; on virtual shards kernels of
+    # several streams overlap, so device ms over wall ms may pass 1)
+    def per_eval(solver, reps=3):
+        n_k, dev_ms = profile_launches(
+            lambda: [solver.accel(pos) for _ in range(reps)])
+        return n_k / reps, dev_ms / reps
+
+    one_ms = ring_scaling.best_ms(lambda: one.accel(pos), dev)
+    n_k, dev_ms = per_eval(one)
+    log(f"(o.5) one card, the sorted path (rows 1 + 3): {one_ms:.3f} "
+        f"ms/eval, {n_k:.1f} CUDA kernels, {dev_ms:.3f} device ms")
+    rows = ring_scaling.strong(N_BENCH, dev)
+    for row in rows:
+        ring = DirectGravity(m, h, G=G, impl="sharded",
+                             devices=[card] * row["D"])
+        ring.accel(pos)
+        row["cuda_kernels"], row["device_ms"] = per_eval(ring)
+        seen = (f"{row['device_ms']:.3f} device ms of {row['ms']:.3f} wall "
+                f"ms ({row['device_ms'] / row['ms']:.3f})"
+                if row["cuda_kernels"] else "not measured (the profiler "
+                "recorded no kernel)")
+        log(f"(o.5) D={row['D']}: {row['cuda_kernels']:.1f} CUDA kernels an "
+            f"evaluation, {seen}")
+    log(f"(o) wall {time.perf_counter() - t_phase:.1f} s")
+    return ({"ring": ring_launches, "ring_run": run_launches},
+            {"forms": forms, "far": far, "errs": errs, "de": de, "dx": dx,
+             "motion": step, "run_errs": run_errs, "one_ms": one_ms,
+             "strong": rows})
+
+
 def phase_l(dev):
     """The potential forms of the direct kernels on the card: checked
     against their plain versions and the fp64 oracle, timed by CUDA
@@ -2520,6 +2830,7 @@ def main():
     pot_stats = phase_l(dev)
     m_launches = phase_m(dev)
     n_launches, n_stats = phase_n(dev)
+    o_launches, o_stats = phase_o(dev)
     slots = pot_stats["slots"]
     # no single PyTorch call computes a softened all-pairs sum or an
     # fma / rsqrt chain: library_ms is null for every kernel
@@ -2537,7 +2848,7 @@ def main():
     paths = {"bench": launches, **ext_launches, **df_launches,
              "quasispherical_run": scf_launches["quasispherical_run"],
              "scf_ladder": scf_launches["scf_ladder"], **m_launches,
-             **n_launches}
+             **n_launches, **o_launches}
 
     def row(name, key, replaces, st):
         by_path = {k: p[key] for k, p in paths.items()}
@@ -2564,6 +2875,10 @@ def main():
     kernels[1]["branches_by_path"] = {
         **{k: df_stats[k]["branches"] for k in df_launches},
         **n_stats["branches"]}
+    # the ring's forms of the single pass at its D = 4 tile shape (o.2)
+    kernels[1]["ring_forms"] = {
+        label: {**measured(st), "splits": st["splits"], "shape": st["shape"]}
+        for label, st in o_stats["forms"].items()}
     # the two-set potential form of the single-pass kernel (the fit's
     # launch site; its launches from phase i's fit), timed at the fit's
     # shape in phase l

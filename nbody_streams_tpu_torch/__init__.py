@@ -16,8 +16,10 @@ roofline kernels in ``csrc/roofline.cu``, stream generation
 frames (``coords``), the analysis toolkit (``utils``: profiles, fits,
 centres, unbinding), the reference's drop-in names (the one-card tree
 tier in ``tree``, ``fields``, ``agama_helper``), SPH surface-density
-maps and plots (``viz``), the host kNN library (``native``) and the
-``nbody-torch-run`` command line (``cli``); the kernels are built with
+maps and plots (``viz``), the host kNN library (``native``), the
+``nbody-torch-run`` command line (``cli``) and the multi-device ring
+(``parallel``: ``impl='sharded'``, ``method='tree'`` over a device list);
+the kernels are built with
 nvcc, the host library with g++, at first use.
 """
 from .__version__ import __version__
@@ -39,6 +41,7 @@ from . import potentials
 from . import utils
 from . import coords
 from . import viz
+from . import parallel
 from .utils.devices import get_device_info, device_alive
 from . import agama_helper   # reference module-path alias -> potentials
 from . import fields         # reference module-path alias -> ops
@@ -85,6 +88,7 @@ __all__ = [
     "utils",
     "coords",
     "viz",
+    "parallel",
     "agama_helper",
     "fields",
     "tree_gpu",

@@ -11,12 +11,15 @@ import torch
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, indexed: bool = False) -> torch.device:
     """The device an entry point builds on: ``'cuda'`` (every entry point's
     default) raises without a card, so the CPU is used only when the
-    caller asks for it with ``device='cpu'``."""
+    caller asks for it with ``device='cpu'``.  ``indexed`` fills in the
+    current card's index of a bare ``'cuda'``, so that devices compare."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={str(device)!r} but torch sees no CUDA "
                            "device; pass device='cpu' to build on the CPU")
+    if indexed and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device

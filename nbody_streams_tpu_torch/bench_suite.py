@@ -9,6 +9,8 @@ precision tier.
 Usage:
     python -m nbody_streams_tpu_torch.bench_suite [-N 65536] [--reps 6] \\
         [--sections 1,2,3,4,5,6] [--device cuda]
+    python -m nbody_streams_tpu_torch.bench_suite --sharded [-N 8192] \\
+        [--reps 3] [--device cuda] [--shards 8]
 
 On a CUDA device (the default; without one it raises) every fp32 row
 pins ``impl='cuda'`` (the hand-written kernels) and each call is timed by
@@ -18,7 +20,10 @@ section 6 is ``bench.measure`` per precision tier and needs a CUDA
 device.  The float64 rows always run the torch oracle: the kernels are
 fp32-only by design.  ``float32_fast`` keeps its row and label but runs
 as plain float32 (the dispatch warns).  ``main`` returns the measured
-rows as a dict, with the device's name.
+rows as a dict, with the device's name.  ``--sharded`` runs the sharded
+row instead (``main_sharded``): the ring of shards against one device,
+on 8 virtual shards of the card by default (``--device cpu`` for 8 CPU
+shards).
 """
 from __future__ import annotations
 
@@ -206,11 +211,58 @@ def main(argv=None):
 
 
 def main_sharded(argv=None):
-    """The sharded-ring row of the TPU suite: the multi-device ring is not
-    ported yet."""
-    raise NotImplementedError(
-        "the multi-device ring is not ported yet (ROADMAP.md Queue 1 "
-        "item 6), so the suite has no sharded row")
+    """The suite's sharded row (the JAX suite's ``main_sharded``): the ring
+    of shards at N = 8,192 (spline, float32_kahan) against the one-device
+    solver on the same device, max relative error and ms an evaluation.
+
+    ``--device`` names the device and ``--shards`` how many virtual shards
+    of it the ring spans: 8 shards of the card by default, where the ring
+    runs the kernels (without a card it raises).  ``--device cpu`` is the
+    counterpart of the JAX row's 8-device virtual CPU mesh: there the ring
+    takes the plain tile and its time measures the orchestration, not a
+    kernel.  Returns the row as a dict."""
+    from . import make_plummer_sphere
+    from ._device import resolve_device
+    from .ops.dispatch import DirectGravity
+
+    ap = argparse.ArgumentParser(description="the sharded-ring row")
+    ap.add_argument("--sharded", action="store_true")
+    ap.add_argument("-N", type=int, default=8192)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu: the shards' device")
+    ap.add_argument("--shards", type=int, default=8)
+    args = ap.parse_args(argv)
+    n = args.N
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as err:
+        raise RuntimeError(f"{err} (here: --device cpu)") from None
+
+    xv, m = make_plummer_sphere(n, M_total=1e9, a=1.0, seed=2)
+    soft = np.full(n, 0.05)
+    sharded = DirectGravity(m, soft, kernel="spline", impl="sharded",
+                            precision="float32_kahan",
+                            devices=[device] * args.shards)
+    single = DirectGravity(m, soft, kernel="spline",
+                           precision="float32_kahan", device=device)
+    p = torch.tensor(xv[:, :3], dtype=torch.float32, device=device)
+    a_s = sharded.accel(p).double()
+    a_1 = single.accel(p).double()
+    rel = ((a_s - a_1).abs().max() / a_1.abs().max()).item()
+    best = float("inf")
+    for _ in range(args.reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        sharded.accel(p)
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    tile = "kernel" if sharded._sharded.use_kernels else "plain"
+    print(f"  sharded ring {args.shards}-shard ({device.type}, {tile} "
+          f"tile): N={n}  {best * 1e3:9.2f} ms/eval   max rel vs "
+          f"single-device ({single.impl}) {rel:.2e}")
+    return {"n": n, "shards": args.shards, "device": device.type,
+            "tile": tile, "ms": best * 1e3, "max_rel_err": rel}
 
 
 if __name__ == "__main__":

@@ -154,8 +154,16 @@ def run_chunk(step_fn, state: IntegratorState, n_steps: int,
 
 
 def system_energy(state: IntegratorState, solver, mass):
-    """(KE, PE) 0-dim tensors with PE = 0.5 sum m_i phi_i (self-gravity)."""
+    """(KE, PE) 0-dim tensors with PE = 0.5 sum m_i phi_i (self-gravity).
+
+    A ghost-padded state (sharded backend, N not divisible by the shard
+    count) is handled by zero-padding ``mass`` to the state's length:
+    ghosts are zero-mass by construction, so they contribute exactly
+    nothing either way."""
     phi = solver.potential(state.pos, order=state.sort_order)
+    if mass.shape[0] != state.pos.shape[0]:
+        mass = torch.nn.functional.pad(
+            mass, (0, state.pos.shape[0] - mass.shape[0]))
     v2 = (state.vel * state.vel).sum(1)
     return 0.5 * (mass * v2).sum(), 0.5 * (mass * phi).sum()
 

@@ -7,12 +7,17 @@ precision's dtype) with a choice of implementation:
 * ``'torch'`` — blocked plain-torch oracle (ops/pairwise.py), any device
 * ``'cuda'``  — the hand-written CUDA kernels (ops/cuda_direct.py); on a
   CPU device it runs their plain torch versions
-* ``'auto'``  — ``'cuda'`` on a CUDA device, ``'torch'`` on the CPU
+* ``'sharded'`` — the ring of source blocks over a list of devices
+  (``parallel/sharded.py``); the list may name one device more than once
+* ``'auto'``  — ``'cuda'`` on a CUDA device, ``'torch'`` on the CPU;
+  ``'sharded'`` when ``devices`` has more than one entry
 
 The solver lives on ``device``: the card unless the caller passes
-``device='cpu'`` (without a card the default raises).  All backends
-share one contract: ``accel(pos) -> (N, 3)`` and ``potential(pos) ->
-(N,)``, closed over the particle population.
+``device='cpu'`` (without a card the default raises); a sharded solver
+lives on the first of its ``devices``.  All backends share one contract:
+``accel(pos) -> (N, 3)`` and ``potential(pos) -> (N,)``, closed over the
+particle population (a sharded solver also takes ghost-padded
+``(N + state_pad, 3)`` positions and keeps their length).
 """
 from __future__ import annotations
 
@@ -42,8 +47,6 @@ _TPU_TILE_KEYS = {
 _NOT_PORTED = {
     "xla": "the TPU-only XLA two-pass backend is not ported (ROADMAP.md, "
            "'Do not port')",
-    "sharded": "the multi-device ring is not ported yet (ROADMAP.md "
-               "Queue 1 item 6)",
 }
 
 
@@ -59,7 +62,12 @@ class DirectGravity:
     the port does not have.
 
     ``device`` is the card by default; without one it raises, naming
-    ``device='cpu'``, the CPU option.
+    ``device='cpu'``, the CPU option.  ``devices`` lists the ring's shards
+    (``parallel.make_particle_mesh``; ``['cpu'] * 8`` for eight CPU
+    shards): with more than one entry ``impl='auto'`` takes the ring, and
+    ``impl='sharded'`` without it spans every visible card.
+    ``sharded_opts`` forwards ``ShardedDirect`` keywords
+    (``use_kernels``, ``mxu``) and needs the sharded impl.
 
     ``tile_config`` overrides the band geometry of the slab-sorted path:
     ``tm`` (targets per band tile) and ``tn`` (sources per band row),
@@ -81,6 +89,8 @@ class DirectGravity:
         eps2: float = PAIRWISE_EPS2,
         target_drift: float | None = None,
         tile_config: dict | None = None,
+        devices=None,
+        sharded_opts: dict | None = None,
     ):
         validate_kernel(kernel)
         validate_precision(precision)
@@ -90,6 +100,34 @@ class DirectGravity:
         self.dtype = torch.float64 if precision == "float64" else torch.float32
         self.G = float(G)
         self.eps2 = float(eps2)
+        if impl in _NOT_PORTED:
+            raise NotImplementedError(f"impl={impl!r}: {_NOT_PORTED[impl]}")
+        if impl == "auto" and devices is not None and len(devices) > 1:
+            impl = "sharded"
+        self.devices = first = None
+        if impl == "sharded":
+            from ..parallel.sharded import make_particle_mesh
+
+            self.devices = make_particle_mesh(devices)
+            first = self.devices[0]
+        elif devices is not None:
+            if len(devices) > 1:
+                raise ValueError(
+                    f"devices= names {len(devices)} devices but "
+                    f"impl={impl!r} runs on one; pass impl='sharded' or "
+                    "'auto'")
+            first = resolve_device(devices[0], indexed=True)
+        if first is not None:
+            if (device is not None
+                    and resolve_device(device, indexed=True) != first):
+                raise ValueError(f"device={device!r} is not the first of "
+                                 f"devices={devices!r}")
+            device = first
+        if sharded_opts and impl != "sharded":
+            raise ValueError(
+                f"sharded_opts given but impl resolved to {impl!r}; pass "
+                "impl='sharded' (impl='auto' only selects the sharded "
+                "backend when devices= has more than one device)")
         self.device = resolve_device("cuda" if device is None else device)
 
         mass = pairwise._as_tensor(mass, self.dtype, self.device)
@@ -98,11 +136,9 @@ class DirectGravity:
             raise ValueError("mass must be a per-particle array")
         n = mass.shape[0]
 
-        if impl in _NOT_PORTED:
-            raise NotImplementedError(f"impl={impl!r}: {_NOT_PORTED[impl]}")
         if impl == "auto":
             impl = _default_impl(self.device)
-        if impl not in ("torch", "cuda"):
+        if impl not in ("torch", "cuda", "sharded"):
             raise ValueError(f"Unknown gravity impl {impl!r}")
         if impl == "cuda" and precision == "float64":
             impl = "torch"  # the kernels are fp32-only by design
@@ -142,6 +178,11 @@ class DirectGravity:
                     f"CUDA kernels and are ignored ({what})",
                     PerformanceWarning, stacklevel=2)
 
+        if self.impl == "sharded":
+            from ..parallel.sharded import ShardedDirect
+
+            self._sharded = ShardedDirect(self, **(sharded_opts or {}))
+
         if precision == "float32_fast":
             from ..species import PerformanceWarning
 
@@ -151,8 +192,28 @@ class DirectGravity:
                 "it runs as plain 'float32'", PerformanceWarning,
                 stacklevel=2)
 
+    def shard_state(self, x):
+        """Ghost-pad an (N, ...) state tensor for the sharded backend (see
+        ``ShardedDirect.shard_state``); a no-op for the one-device
+        backends."""
+        if self.impl == "sharded":
+            return self._sharded.shard_state(x)
+        return x
+
+    @property
+    def state_pad(self) -> int:
+        """Ghost rows the sharded backend appends to make N divisible by
+        the shard count (0 for the one-device backends and for even N).
+        Ghosts are zero-mass, so they are invisible to forces and to every
+        mass-weighted diagnostic; run_nbody freezes them and
+        strips them from all host-visible output."""
+        if self.impl == "sharded":
+            return self._sharded.npad - self.n
+        return 0
+
     def _check_pos(self, pos):
-        if pos.ndim != 2 or tuple(pos.shape) != (self.n, 3):
+        ok = {(self.n, 3), (self.n + self.state_pad, 3)}
+        if pos.ndim != 2 or tuple(pos.shape) not in ok:
             raise ValueError(
                 f"pos shape {tuple(pos.shape)} does not match the solver's "
                 f"({self.n}, 3) particle population")
@@ -188,6 +249,8 @@ class DirectGravity:
         order for the sorted path; ignored by the oracle."""
         self._check_pos(pos)
         pos = pos.to(self.dtype)
+        if self.impl == "sharded":
+            return self._sharded.accel(pos)
         if self.impl == "cuda":
             return cuda_direct.cuda_accel(
                 pos, self.mass, self.softening, self.G, self.kernel,
@@ -200,6 +263,8 @@ class DirectGravity:
         """Softened gravitational potential per particle, (N,)."""
         self._check_pos(pos)
         pos = pos.to(self.dtype)
+        if self.impl == "sharded":
+            return self._sharded.potential(pos)
         if self.impl == "cuda":
             return cuda_direct.cuda_potential(
                 pos, self.mass, self.softening, self.G, self.kernel,

@@ -7,8 +7,10 @@ Snapshot and restart files are the JAX package's formats (``nbody_io``),
 so a run started by either package resumes in the other.  Self-gravity is
 ``DirectGravity`` or the solver a ``solver_factory`` builds (the SCF tier);
 an external field and a ``ForceExtra`` (the dynamical friction) add their
-terms.  ``profile_dir`` traces the chunks with ``torch.profiler``.  Not
-ported: multi-device ``devices``.
+terms.  ``profile_dir`` traces the chunks with ``torch.profiler``.
+``devices`` with more than one entry runs the ring of shards
+(``parallel/sharded.py``); an N the shard count does not divide is padded
+with zero-mass ghost rows, frozen and stripped from every output.
 """
 from __future__ import annotations
 
@@ -55,17 +57,26 @@ _WATCH_STEPS = 50
 class CallbackForceExtra(ForceExtra):
     """Adapter for reference-style plain callables
     ``fn(pos, vel, masses, time) -> (N, 3)`` on numpy arrays: the state is
-    copied to the host for each call."""
+    copied to the host for each call.
 
-    def __init__(self, fn, mass_np):
+    With ``pad`` ghost rows (a ghost-padded sharded state) the callable
+    keeps its exact contract: it sees only the real rows, and the ghost
+    rows get zero extra force."""
+
+    def __init__(self, fn, mass_np, pad: int = 0):
         self.fn = fn
         self.mass_np = np.asarray(mass_np, np.float64)
+        self.pad = int(pad)
 
     def __call__(self, state, pos, vel, mass, t, phi=None, step=0):
-        out = self.fn(pos.cpu().numpy(), vel.cpu().numpy(), self.mass_np,
-                      float(t))
-        return torch.as_tensor(np.asarray(out), dtype=pos.dtype,
-                               device=pos.device), state
+        n = pos.shape[0] - self.pad
+        out = self.fn(pos[:n].cpu().numpy(), vel[:n].cpu().numpy(),
+                      self.mass_np, float(t))
+        out = torch.as_tensor(np.asarray(out), dtype=pos.dtype,
+                              device=pos.device)
+        if self.pad:
+            out = torch.cat([out, out.new_zeros((self.pad, 3))])
+        return out, state
 
 
 class _ChunkWatchdog:
@@ -118,18 +129,20 @@ def _resolve_device(architecture: str) -> torch.device:
     raise ValueError(f"Unknown architecture {architecture!r}")
 
 
-def run_copies(external_potential, force_extra, masses, device, dtype):
+def run_copies(external_potential, force_extra, masses, device, dtype,
+               pad: int = 0):
     """The external field and the extra force as a run uses them: a torch
     module field as a copy moved to ``device`` and ``dtype`` (the caller's
     object is left as it is), a ``ForceExtra`` with a ``to(device, dtype)``
     method (the dynamical friction) as the copy it returns, and a plain
-    ``fn(pos, vel, masses, t)`` wrapped in ``CallbackForceExtra``."""
+    ``fn(pos, vel, masses, t)`` wrapped in ``CallbackForceExtra`` (``pad``
+    ghost rows hidden from it)."""
     if isinstance(external_potential, torch.nn.Module):
         external_potential = copy.deepcopy(external_potential).to(
             device=device, dtype=dtype)
     fx = force_extra
     if fx is not None and not isinstance(fx, ForceExtra):
-        fx = CallbackForceExtra(fx, masses)
+        fx = CallbackForceExtra(fx, masses, pad=pad)
     elif callable(getattr(fx, "to", None)):
         fx = fx.to(device=device, dtype=dtype)
     return external_potential, fx
@@ -236,8 +249,14 @@ def run_nbody(
     * ``profile_dir``: the chunks run under ``torch.profiler`` (CPU and,
       on the card, CUDA activity), and a Chrome trace is written into
       ``profile_dir`` when the loop ends, a failing run's included.
-    * ``devices`` with more than one device is not ported yet and raises
-      ``NotImplementedError``.
+    * ``devices``: with more than one entry (``['cuda:0', 'cuda:1']``, or
+      virtual shards of one device such as ``['cpu'] * 8``) the force runs
+      on the ring of shards (``impl='sharded'``).  When N is not a
+      multiple of the shard count the state carries zero-mass ghost rows
+      at the last particle's position with zero velocity, frozen by a mask
+      on the acceleration (the external field's and the extra force's
+      included) and stripped from the return value, the snapshots, the
+      restart file and the energies.
     """
     validate_kernel(kernel)
     validate_precision(precision)
@@ -246,11 +265,6 @@ def run_nbody(
         raise TypeError(
             "external_potential must have a force(pos, t) method; got "
             f"{type(external_potential).__name__}")
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            "multi-device runs are not ported yet (ROADMAP.md Queue 1 "
-            "item 6)")
-
     phase_space = np.asarray(phase_space, np.float64)
     if phase_space.ndim != 2 or phase_space.shape[1] != 6:
         raise ValueError(f"phase_space must be (N, 6), got {phase_space.shape}")
@@ -344,28 +358,52 @@ def run_nbody(
         snap_kwargs["mass_dark"] = np.asarray(masses, float)
         snap_kwargs["eps_dark"] = np.asarray(soft_arr, float)
 
-    external_potential, fx = run_copies(external_potential, force_extra,
-                                        masses, device, state_dtype)
-
     if solver_factory is not None:
         solver = solver_factory(masses, soft_arr, device=device)
     else:
         solver = DirectGravity(
             masses, soft_arr, G=G, kernel=kernel, precision=precision,
             impl=impl, block_size=block_size, device=device,
-            target_drift=target_drift,
+            target_drift=target_drift, devices=devices,
         )
+        device = solver.device
+    # Ghost padding (sharded backend, N not divisible by the shard count):
+    # integrate N + pad rows so every shard holds n_local rows.  Ghosts are
+    # zero-mass (invisible to forces and mass-weighted diagnostics), frozen
+    # (zero-masked acceleration below) and stripped from every host-visible
+    # output.
+    pad = getattr(solver, "state_pad", 0)
+    mass_dev = (torch.nn.functional.pad(solver.mass, (0, pad)) if pad
+                else solver.mass)
+
+    external_potential, fx = run_copies(external_potential, force_extra,
+                                        masses, device, state_dtype, pad=pad)
 
     if verbose:
         print("=" * 70)
         print(f"N-body integration  [{device.type}/{solver.impl}, "
               f"{precision}, kernel={getattr(solver, 'kernel', kernel)}]")
         print(f"Particles: {n:,}  steps: {total_steps:,} "
-              f"(start {start_step})  dt={dt:.3e}")
+              f"(start {start_step})  dt={dt:.3e}"
+              + (f"  [+{pad} zero-mass ghost rows: even shards]"
+                 if pad else ""))
         print("=" * 70)
 
-    accel_fn = make_accel_fn(solver, solver.mass, external_potential,
+    accel_fn = make_accel_fn(solver, mass_dev, external_potential,
                              external_update_interval, fx)
+    if pad:
+        _base_accel = accel_fn
+        _live = torch.cat([torch.ones((n, 1), dtype=state_dtype),
+                           torch.zeros((pad, 1), dtype=state_dtype)]).to(
+                               device)
+
+        def accel_fn(pos, vel, t, step, ext_acc, extra_state,
+                     refresh_ext=False, order=None):
+            acc, ext_acc, extra_state = _base_accel(
+                pos, vel, t, step, ext_acc, extra_state,
+                refresh_ext=refresh_ext, order=order)
+            # freeze the ghosts: one multiply a step
+            return acc * _live, ext_acc, extra_state
     step_fn = make_kdk_step(accel_fn, dt, time_start,
                             compensated=(precision == "float32_kahan"))
 
@@ -373,23 +411,32 @@ def run_nbody(
     # every presort_every steps, not per force call
     presort = solver.spatial_sort_active
     presort_every = getattr(solver, "presort_interval", None)
+    xv_init = xv
+    if pad:
+        # ghost rows at the last real particle's position (inside the last
+        # shard's x-interval, so the ring's far test does not change) with
+        # zero velocity
+        ghost = np.repeat(xv[-1:], pad, axis=0)
+        ghost[:, 3:] = 0.0
+        xv_init = np.vstack([xv, ghost])
     state = init_state(
-        xv[:, :3], xv[:, 3:], accel_fn, solver.mass, time_start,
+        xv_init[:, :3], xv_init[:, 3:], accel_fn, mass_dev, time_start,
         start_step=start_step, dt=dt, dtype=state_dtype, force_extra=fx,
         sort_fn=solver.sort_key if presort else None, device=device,
     )
 
     e_ref = None
     if debug_energy:
-        ke, pe = system_energy(state, solver, solver.mass)
+        ke, pe = system_energy(state, solver, mass_dev)
         e_ref = float(ke) + float(pe)
         if verbose:
             print(f"[energy t0] KE={float(ke):.4e} PE={float(pe):.4e} "
                   f"E={e_ref:.4e}")
 
     def fetch_xv(st: IntegratorState) -> np.ndarray:
-        return torch.cat([st.pos, st.vel], dim=1).cpu().numpy().astype(
-            np.float64)
+        # [:n] strips the ghost rows (all rows when pad == 0)
+        return torch.cat([st.pos[:n], st.vel[:n]], dim=1).cpu().numpy(
+        ).astype(np.float64)
 
     def write_snapshot(xv_host, counter, t):
         _save_snapshot(xv_host, counter, t, output_path, **snap_kwargs)
@@ -509,7 +556,7 @@ def run_nbody(
                         "ms/step")
                 if debug_energy and e_ref is not None:
                     with boundary_guard():
-                        ke, pe = system_energy(state, solver, solver.mass)
+                        ke, pe = system_energy(state, solver, mass_dev)
                         ke, pe = float(ke), float(pe)
                     etot = ke + pe
                     q = f"{ke / abs(pe):.3f}" if pe else "inf"

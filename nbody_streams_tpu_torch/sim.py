@@ -5,17 +5,20 @@ assembly, kwarg routing, then ``run_nbody``.  Ported:
 
 * ``method='direct'``: O(N^2) direct summation through the CUDA kernels
   (``ops/dispatch.DirectGravity``);
-* ``method='tree'``: on one device the same exact direct sum, as the JAX
-  package's ``impl='sharded'`` is on a one-device mesh (the run keeps its
-  own ``kernel``);
+* ``method='tree'``: the JAX package's ``impl='sharded'``, the exact
+  direct sum.  Over more than one device (``devices=[...]``, which may
+  repeat a device) it runs the ring of shards (``parallel/sharded.py``);
+  without ``devices`` or on one device the direct path on one card, which
+  gives the same values to float32 tolerance faster than a one-shard ring
+  (the run keeps its own ``kernel``).  The ring across distinct cards is
+  asked for by naming them: a copy between two cards has not yet been
+  checked against the one-card path;
 * ``method='scf'``: the Hernquist-Ostriker expansion (``ops/scf.py``),
   single-centre or one expansion per species group (``scf_groups``);
 * ``external_potential`` (e.g. from ``nbody_streams_tpu_torch.potentials``)
   and ``dynamical_friction=True`` (``friction.py``, the ``df_*``
   keywords).
 
-``method='tree'`` over more than one device (the multi-device ring) is not
-ported yet and raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -79,10 +82,10 @@ def run_simulation(
 
     The surface of ``nbody_streams_tpu.run_simulation``; here
     ``architecture`` is 'gpu' or 'auto' (a CUDA device; each raises without
-    one) or 'cpu', and ``method`` is 'direct', 'tree' (the exact direct sum
-    on one device) or 'scf'.  Dynamical
-    friction takes the ``df_*`` keywords (``df_M_sat`` defaults to the
-    total mass) and needs ``external_potential``; the SCF tier takes the
+    one) or 'cpu', and ``method`` is 'direct', 'tree' (the exact direct sum:
+    the ring over ``devices=`` when they name more than one) or 'scf'.
+    Dynamical friction takes the ``df_*`` keywords (``df_M_sat`` defaults
+    to the total mass) and needs ``external_potential``; the SCF tier takes the
     ``scf_*`` keywords, ``scf_groups`` mapping species names (or slices)
     to per-group options.
     """
@@ -135,9 +138,9 @@ def run_simulation(
             f"df_* kwargs given but dynamical_friction=False: "
             f"{sorted(df_kwargs)}")
 
-    # method='tree' runs the direct path: the JAX package routes it to
-    # impl='sharded', the exact direct sum on a one-device mesh (more than
-    # one device raises in run_nbody)
+    # method='tree' runs as 'direct': with devices= naming more than one
+    # device DirectGravity's impl='auto' takes the ring (the JAX package's
+    # impl='sharded'), on one device the one-card path
     if method == "scf":
         direct_kwargs["solver_factory"] = _scf_factory(
             phase_space, species, direct_kwargs, scf_kwargs, G)

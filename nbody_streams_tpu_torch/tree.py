@@ -97,10 +97,12 @@ def tree_gravity_gpu(pos, mass, eps=None, G: float = G_DEFAULT,
 def run_nbody_gpu_tree(phase_space, masses, time_start, time_end, dt,
                        softening=0.05, G: float = G_DEFAULT,
                        theta: float = 0.6, nleaf: int = 64, ncrit: int = 64,
-                       level_split: int = 5, **kwargs):
+                       level_split: int = 5, devices=None, **kwargs):
     """KDK integration through the tree tier's backend (the reference's
     ``run_nbody_gpu_tree``): ``run_nbody`` with the Plummer kernel by
-    default, on the card unless ``architecture='cpu'`` is passed.  All
+    default, on the card unless ``architecture='cpu'`` is passed.
+    ``devices`` with more than one entry runs the ring of shards
+    (``impl='sharded'``); without it the run stays on one device.  All
     ``run_nbody`` keywords (snapshots, restart, ``step_timeout_s``,
     external potentials, ``force_extra``, ``profile_dir`` ...) pass
     through."""
@@ -109,4 +111,4 @@ def run_nbody_gpu_tree(phase_space, masses, time_start, time_end, dt,
     _note_exact(theta)
     kwargs.setdefault("kernel", "plummer")  # the reference tree's kernel
     return run_nbody(phase_space, masses, time_start, time_end, dt,
-                     softening=softening, G=G, **kwargs)
+                     softening=softening, G=G, devices=devices, **kwargs)

@@ -717,3 +717,76 @@ def test_native_knn_on_the_card_machine(dev):
     assert np.max(np.abs(got - want) / want) <= chip_smoke.KNN_TOL
     order = native.morton_argsort(pos)
     assert np.array_equal(np.sort(order), np.arange(len(pos)))
+
+
+# ---------------------------------------------------------------------------
+# the ring over virtual shards of the card
+# ---------------------------------------------------------------------------
+
+def _ring_case(n, seed=2, sort=True):
+    from nbody_streams_tpu_torch.parallel.sharded import (
+        slab_sort_for_sharding)
+
+    xv, m = make_plummer_sphere(n, M_total=1e9, a=1.0, seed=seed)
+    h = np.full(n, H)
+    if sort:
+        xv, m, h = slab_sort_for_sharding(xv, m, h)
+    return xv, m, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 8193])
+def test_ring_on_virtual_shards_matches_one_card(dev, n):
+    """The ring over ['cuda:0'] * 4 against the one-card solver, force and
+    potential, within 2e-6 * max; at N = 8,193 the ring pads 3 ghost rows
+    and the padded input gives the unpadded result on the real rows."""
+    xv, m, h = _ring_case(n)
+    ring = DirectGravity(m, h, G=G, impl="sharded", devices=["cuda:0"] * 4)
+    one = DirectGravity(m, h, G=G, impl="cuda", device=dev)
+    assert ring._sharded.use_kernels and ring.state_pad == (-n) % 4
+    pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+    before = cd.LAUNCHES["single"]
+    for mode in ("accel", "potential"):
+        got = getattr(ring, mode)(pos)
+        assert got.is_cuda and torch.isfinite(got).all()
+        assert _rel(got, getattr(one, mode)(pos)) < 2e-6
+    assert cd.LAUNCHES["single"] - before >= 2 * 16
+    if ring.state_pad:
+        padded = torch.cat([pos, pos[-1:].expand(ring.state_pad, 3)])
+        assert torch.equal(ring.accel(padded)[:n], ring.accel(pos))
+
+
+@pytest.mark.cuda
+def test_ring_far_tiles_on_the_card(dev):
+    from nbody_streams_tpu_torch.parallel.sharded import TILES
+
+    for sort, expect_far in ((True, True), (False, False)):
+        xv, m, h = _ring_case(65_536, sort=sort)
+        ring = DirectGravity(m, h, G=G, impl="sharded",
+                             devices=["cuda:0"] * 8)
+        before = TILES["newtonian"]
+        ring.accel(torch.tensor(xv[:, :3], dtype=torch.float32, device=dev))
+        far = TILES["newtonian"] - before
+        assert (far >= 32) if expect_far else (far == 0), far
+
+
+@pytest.mark.cuda
+def test_ring_method_tree_run_on_the_card(dev, tmp_path):
+    """20 steps of run_simulation(method='tree') over ['cuda:0'] * 4 at an
+    uneven N (3 ghost rows) against method='direct' on the card."""
+    from nbody_streams_tpu_torch import Species, run_simulation
+
+    n = 8193
+    xv, m, _ = _ring_case(n, seed=3)
+    sp = [Species.dark(N=n, mass=float(m[0]), softening=H)]
+    kw = dict(time_start=0.0, time_end=20 * 2e-5, dt=2e-5,
+              architecture="gpu", save_snapshots=False, verbose=False)
+    before = cd.LAUNCHES["single"]
+    tree = run_simulation(xv, sp, method="tree", devices=["cuda:0"] * 4,
+                          output_dir=str(tmp_path / "t"), **kw)["dark"]
+    assert cd.LAUNCHES["single"] - before == 21 * 16
+    direct = run_simulation(xv, sp, method="direct",
+                            output_dir=str(tmp_path / "d"), **kw)["dark"]
+    assert tree.shape == (n, 6) and np.isfinite(tree).all()
+    scale = np.abs(direct[:, :3]).max()
+    assert np.abs(tree[:, :3] - direct[:, :3]).max() < 1e-5 * scale

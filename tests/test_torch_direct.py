@@ -528,9 +528,12 @@ def test_direct_gravity_impls_and_tiers():
     assert DirectGravity(m, h, impl="cuda", **cpu).impl == "cuda"
     assert DirectGravity(m, h, impl="cuda", precision="float64",
                          **cpu).impl == "torch"
-    for impl in ("xla", "sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DirectGravity(m, h, impl=impl, **cpu)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DirectGravity(m, h, impl="xla", **cpu)
+    # the ring: over the devices given, the first of them the solver's
+    ring = DirectGravity(m, h, impl="sharded", devices=["cpu"] * 2)
+    assert ring.impl == "sharded" and ring.device == torch.device("cpu")
+    assert DirectGravity(m, h, devices=["cpu"] * 2).impl == "sharded"
     with pytest.raises(ValueError, match="impl"):
         DirectGravity(m, h, impl="pallas", **cpu)
     with pytest.warns(PerformanceWarning, match="float32_fast"):

@@ -3,10 +3,11 @@
 * every script (and the notebook generator, and the code cells of the
   notebooks it writes) byte-compiles and imports neither jax nor the JAX
   package (an AST scan);
-* every example of the JAX package but the multi-device one has its copy;
+* every example of the JAX package has its copy;
 * the ``main()``-guarded scripts import cleanly;
-* the SCF demo runs end to end at tiny N on the CPU in a subprocess, and
-  the headline example fails without a card instead of falling back.
+* the SCF demo and the ring's demo run end to end at tiny N on the CPU in
+  a subprocess, and the headline example fails without a card instead of
+  falling back.
 """
 import ast
 import json
@@ -30,8 +31,8 @@ GUARDED = [
     "run_simulation_multispecies.py",
     "stream_nbody.py",
 ]
-# the multi-device ring's demo waits for the ring (ROADMAP Queue 1 item 6)
-NOT_PORTED = {"sharded_million.py"}
+# every example is ported (the multi-device ring's demo since the ring)
+NOT_PORTED = set()
 
 
 def _imports(tree):
@@ -99,6 +100,14 @@ def test_scf_expansion_example_tiny_on_cpu(tmp_path):
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "scf run: 4 steps" in proc.stdout
     assert "rel force err" in proc.stdout   # the accuracy-ladder table
+
+
+def test_sharded_million_example_tiny_on_cpu(tmp_path):
+    proc = _run(tmp_path, "sharded_million.py", "600", "cpu")
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "8 device(s): cpu" in proc.stdout
+    assert "cpu/sharded" in proc.stdout
+    assert "10 steps at N=600 on 8 device(s)" in proc.stdout
 
 
 def test_examples_need_the_card(tmp_path):

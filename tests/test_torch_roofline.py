@@ -329,9 +329,23 @@ def test_bench_suite_runs_on_cpu():
         assert row["max_rel_err"] < 3e-6
 
 
-def test_bench_suite_has_no_sharded_row():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        bench_suite.main_sharded()
+def test_bench_suite_has_no_sharded_row(capsys):
+    """The sharded row (``--sharded``) is not part of ``main``'s sections:
+    it is ``main_sharded``, the ring on 8 virtual shards of the card by
+    default (raising without one), here on 8 CPU shards at a small N
+    against the one-device solver."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            bench_suite.main_sharded(["--sharded", "-N", "64"])
+    out = bench_suite.main_sharded(["--sharded", "-N", "1024", "--reps",
+                                    "1", "--device", "cpu"])
+    assert out["shards"] == 8 and out["device"] == "cpu"
+    assert out["tile"] == "plain" and out["ms"] > 0
+    assert out["max_rel_err"] < 2e-6
+    assert "sharded ring 8-shard" in capsys.readouterr().out
+    four = bench_suite.main_sharded(["-N", "512", "--reps", "1",
+                                     "--shards", "4", "--device", "cpu"])
+    assert four["shards"] == 4 and four["max_rel_err"] < 2e-6
 
 
 def test_split_sweep_runs_on_cpu_and_needs_a_named_device(monkeypatch):

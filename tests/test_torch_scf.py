@@ -237,7 +237,9 @@ def test_scf_guards_match_jax(tmp_path):
         sim(method="scf", precision="float32_fast", scf_nmax=2, scf_lmax=0)
     with pytest.raises(ValueError, match="unknown species"):
         sim(method="scf", scf_groups={"nope": {"a": 1.0}})
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # more than one device is the ring; a card's devices do not mix with
+    # architecture='cpu'
+    with pytest.raises((RuntimeError, ValueError), match="device"):
         sim(method="tree", devices=["cuda:0", "cuda:1"])
     with pytest.raises(ValueError, match="method"):
         sim(method="fmm")

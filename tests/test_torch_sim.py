@@ -160,7 +160,9 @@ def test_import_leaves_jax_out():
             "nbody_streams_tpu_torch.viz.plots, "
             "nbody_streams_tpu_torch.viz.sph_kernels, "
             "nbody_streams_tpu_torch.viz.healpix, "
-            "nbody_streams_tpu_torch.native, nbody_streams_tpu_torch.cli")
+            "nbody_streams_tpu_torch.native, nbody_streams_tpu_torch.cli, "
+            "nbody_streams_tpu_torch.parallel, "
+            "nbody_streams_tpu_torch.benchmarks.ring_scaling")
     code = (f"import sys, {mods}; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nbody_streams_tpu' not in sys.modules; "
@@ -169,20 +171,25 @@ def test_import_leaves_jax_out():
 
 
 def test_not_ported_options_raise(case, tmp_path):
-    """The sharded impl and more than one device still raise, naming their
-    ROADMAP item (the multi-device ring); the SCF tier, dynamical
-    friction, the one-device tree and profile_dir run (the last two are
-    held in tests/test_torch_compat.py)."""
+    """Every option of the JAX package's run runs now: the sharded impl
+    and more than one device take the ring (held in
+    tests/test_torch_sharded.py), and without a ``devices`` list the
+    sharded impl spans every visible card, so on the CPU it needs
+    ``devices=['cpu'] * k``; the SCF tier, dynamical friction, the
+    one-device tree and profile_dir run (the last two are held in
+    tests/test_torch_compat.py)."""
     xv, species = case
     run = lambda **kw: tst.run_simulation(   # noqa: E731
         xv, species, 0.0, 2 * DT, DT, output_dir=str(tmp_path),
         verbose=False, save_snapshots=False, **kw)
-    two = ["cuda:0", "cuda:1"]
-    for kw, item in ((dict(impl="sharded"), "item 6"),
-                     (dict(method="tree", devices=two), "item 6"),
-                     (dict(devices=two), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            run(architecture="cpu", **kw)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match=r"devices=\['cpu'\] \* k"):
+            run(architecture="cpu", impl="sharded")
+    for kw in (dict(impl="sharded", devices=["cpu"] * 4),
+               dict(method="tree", devices=["cpu"] * 4),
+               dict(devices=["cpu"] * 4)):
+        got = run(architecture="cpu", overwrite=True, **kw)["dark"]
+        assert got.shape == (N, 6) and np.isfinite(got).all()
     for kw in (dict(method="scf", scf_a=1.0),
                dict(dynamical_friction=True,
                     external_potential=_fields(tst)["mw22"]())):
