@@ -10,7 +10,9 @@ dt = 2e-5), times it, and drives the measurement path (probe, bench,
 roofline, speed of light, tile sweep, bench suite), the external fields,
 dynamical friction, the SCF tier, the samplers, the reference's drop-in
 names with the one-card tree tier, stream generation (particle spray,
-restricted N-body) and unbinding.  Phases:
+restricted N-body), unbinding, the command line, the ring over virtual
+shards and the scale drivers (the 2M flagship, the 1M and 2M gates).
+Phases:
 
   (a) card name and power limit; kernel build time; each force kernel's
       registers, spills and issue slots a pair from its SASS (the base
@@ -128,12 +130,27 @@ restricted N-body) and unbinding.  Phases:
       self-masked potential tiles against their plain versions; (o.5)
       the strong-scaling table of benchmarks.ring_scaling beside the
       one-card time
+  (p) the scale drivers (benchmarks.flagship2m, benchmarks.northstar) at
+      full width, cut in depth: (p.1) the flagship at N = 2,097,153 (three
+      species in the MW+LMC field with friction): build_ics' host seconds,
+      the field at every initial point in float32 against float64 on the
+      CPU at 65,536 of them (FIELD_TOL), the self-gravity force and
+      self-masked potential of the start and final states against the
+      float64 sum at 4,096 targets (3e-6), the sorted path's kernels at
+      that N timed by CUDA events, flagship2m.run stopped at step 3 and
+      resumed to step 6 (restart files at steps 3 and 6, the summary
+      counting 6 steps over 2 attempts, the CoM radius falling, every state
+      finite), one KDK step's ms, kernels, device ms and busy share, and
+      the final state's stars rendered at 384^2 on the card against the
+      CPU; (p.2) northstar's argsort at 2M; (p.3) gate2m at N = 2,097,152
+      for 3 of its 100 steps and (p.4) gate1m at N = 1,048,576 for 20 of
+      its 1,000, each with |dE/E| < 1e-4 from its float64 bracket
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card, and
 the one before that a JSON object of the kernels: for the force kernels
-the launches of each run path of phases (d), (i), (j), (k), (m), (n) and
-(o) under ``launches_by_path``, counted by kernel form (the base pass, the single
+the launches of each run path of phases (d), (i), (j), (k), (m), (n), (o)
+and (p) under ``launches_by_path``, counted by kernel form (the base pass, the single
 pass, the band pass) where the wrapper launches it, and in phase (g)'s
 measurement path for the roofline kernels; max error and times from
 (b)/(g)/(k)/(l) (tile_sol at full occupancy, the shape where it bounds
@@ -313,6 +330,16 @@ RING_TILE_D = 4
 RING_RUN_N = 65_537
 RING_RUN_D = 4
 RING_RUN_STEPS = 100
+# (p) the scale drivers at full width, cut in depth (PERF.md section 4):
+# the flagship 3 steps, then a resumed 3, of its 200; gate2m 2 of its 100
+# steps; gate1m 4 of its 1,000
+FLAGSHIP_STEPS = 6
+FLAGSHIP_STOP = 3
+GATE2M_STEPS = 2
+GATE1M_STEPS = 4
+P_SAMPLE = 4096        # float64 targets of the flagship's force checks
+P_FIELD_SAMPLE = 65536  # float64 CPU points of its field check
+P_RENDER_NPIX = 384
 
 
 def log(msg):
@@ -384,20 +411,23 @@ def plummer_case(n, seed):
     return xv, m
 
 
-def sorted_operands(xv, m, dev, wide=False):
-    """The sorted path's operands for equal masses m and h = H, as
-    ``cuda_direct._self_sorted`` builds them: x-sorted targets and sources
-    (spline), the band's start rows, its width nb, the source rows and the
-    widest band window (the two-pass branch runs where it is <= nb).
+def sorted_operands(xv, gm, h, dev, wide=False, order=None):
+    """The sorted path's operands for per-particle G m ``gm`` and
+    softenings ``h``, as ``cuda_direct._self_sorted`` builds them: targets
+    and sources (spline) in ``order`` (by default the slab order of xv's
+    positions), the band's start rows, its width nb, the source rows and
+    the widest band window (the two-pass branch runs where it is <= nb).
     ``wide`` widens nb to that window where it is wider, so that the two
     passes sum the exact force at any state."""
     from nbody_streams_tpu_torch.ops import cuda_direct as cd
 
-    n = len(m)
-    pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
-    ps = pos[cd.slab_sort_key(pos)]
-    gs = torch.full((n,), m[0] * G, dtype=torch.float32, device=dev)
-    hs = torch.full((n,), H, dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    pos = torch.as_tensor(xv[:, :3], **f32)
+    if order is None:
+        order = cd.slab_sort_key(pos)
+    ps = pos[order]
+    gs = torch.as_tensor(gm, **f32)[order]
+    hs = torch.as_tensor(h, **f32)[order]
     hinv = cd._soft_pre("spline", hs)
     first, max_width, rows = cd.band_window(ps[:, 0], hs.max())
     nb = cd.band_rows(rows)
@@ -482,7 +512,8 @@ def phase_b(dev):
 
     # skip_band base pass + band pass at the bench case's shapes
     xv, m = plummer_case(N_BENCH, 2)
-    tgt, src, start, nb, rows, max_width = sorted_operands(xv, m, dev)
+    tgt, src, start, nb, rows, max_width = sorted_operands(
+        xv, G * m, np.full(len(m), H), dev)
     check(max_width <= nb, f"bench case window {max_width} > {nb}")
     ns = src.shape[1]
     mufu = mufu_rate(dev)
@@ -2057,8 +2088,10 @@ def frame_mass(pos2, m, h, extent, npix):
     return float(m[inner].sum() + edge.sum())
 
 
-def render_checks(dev, pos, m, tag):
-    """(n) render ``pos`` at RENDER_NPIX^2 through ``auto`` on the card and
+def render_checks(dev, pos, m, tag, npix=RENDER_NPIX, phase="n",
+                  extent=None):
+    """Render ``pos`` at npix^2 (over ``extent``, the renderer's own frame
+    by default) through ``auto`` on the card and
     on the CPU with the same smoothing lengths: the images agree within
     RENDER_TOL, the card's image holds the frame's mass within MASS_TOL;
     the splat's CUDA-event ms, launches and busy share (profiler), the
@@ -2067,23 +2100,25 @@ def render_checks(dev, pos, m, tag):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img, extent = sph.render_surface_density(pos, m, npix=RENDER_NPIX)
+    img, extent = sph.render_surface_density(pos, m, npix=npix,
+                                             extent=extent)
     wall_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     h = sph.get_smoothing_lengths(pos[:, :2])
     knn_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    ref, ext_cpu = sph.render_surface_density(pos, m, npix=RENDER_NPIX,
-                                              smoothing=h, arch="cpu")
+    ref, ext_cpu = sph.render_surface_density(pos, m, npix=npix,
+                                              extent=extent, smoothing=h,
+                                              arch="cpu")
     cpu_ms = (time.perf_counter() - t0) * 1e3
-    check(ext_cpu == extent and img.shape == (RENDER_NPIX, RENDER_NPIX)
+    check(ext_cpu == extent and img.shape == (npix, npix)
           and np.isfinite(img).all(), f"{tag}: render shape / extent")
     err = np.abs(img - ref).max() / np.abs(ref).max()
     area = (extent[1] - extent[0]) * (extent[3] - extent[2]) \
-        / RENDER_NPIX ** 2
-    want = frame_mass(pos[:, :2], m, h, extent, RENDER_NPIX)
+        / npix ** 2
+    want = frame_mass(pos[:, :2], m, h, extent, npix)
     mass_err = abs(img.sum() * area - want) / want
-    args = splat_args(pos[:, :2], m, h, extent, RENDER_NPIX, dev)
+    args = splat_args(pos[:, :2], m, h, extent, npix, dev)
     ms = cuda_ms(lambda: sph._splat(*args), 5)
     n_launch, dev_ms = profile_launches(lambda: sph._splat(*args))
     torch.cuda.synchronize()
@@ -2092,7 +2127,7 @@ def render_checks(dev, pos, m, tag):
     torch.cuda.synchronize()
     splat_wall = (time.perf_counter() - t0) * 1e3
     bitwise = torch.equal(a, sph._splat(*args))
-    log(f"(n) render {tag}: N={len(m)} at {RENDER_NPIX}^2, card vs CPU "
+    log(f"({phase}) render {tag}: N={len(m)} at {npix}^2, card vs CPU "
         f"{err:.3e} (tol {RENDER_TOL:.0e}); frame mass {want:.6e}, "
         f"|image - frame| / frame {mass_err:.3e} (tol {MASS_TOL:.0e}); "
         f"render wall {wall_ms:.1f} ms (kNN alone {knn_ms:.1f} ms, the "
@@ -2157,8 +2192,8 @@ def cli_kernel_checks(dev, states, m):
 
     # the last state's sorted operands
     order = cd.slab_sort_key(pos)
-    tgt, src, start, nb, rows, width = sorted_operands(xv, m, dev,
-                                                       wide=True)
+    tgt, src, start, nb, rows, width = sorted_operands(
+        xv, G * m, np.full(n, H), dev, wide=True, order=order)
     ns = src.shape[1]
 
     def unsorted(out_s):
@@ -2632,6 +2667,361 @@ def phase_o(dev):
              "strong": rows})
 
 
+def event_ms(fn):
+    """``fn()`` and its ms by CUDA events, one call with no warm-up."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def p_sorted_rows(dev, xv, gm, soft, eps2):
+    """The base and band passes (rows 1 and 3) the sorted path runs at the
+    flagship's N on the freshly sorted ``xv``, each timed by CUDA events
+    (one call: the kernels ran in the checks before) with its bound; None
+    where the widest band window does not fit the band."""
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    tgt, src, start, nb, rows, width = sorted_operands(xv, gm, soft, dev)
+    n, ns = tgt.shape[1], src.shape[1]
+    if width > nb:
+        log(f"(p.1) the fresh order's band window {width} exceeds the band "
+            f"nb={nb}: rows 1 and 3 are not timed")
+        return None
+    forms = {
+        "base": ("newtonian", n * (ns - nb * cd.TN), lambda: cd._direct_tile(
+            tgt, src, "newtonian", "acc", True, eps2, False, nb, start)),
+        "band": ("spline", n * nb * cd.TN, lambda: cd._band(
+            tgt, src, start, "acc", True, eps2, False, cd.TM, cd.TN, nb))}
+    out = {}
+    for key, (law, pairs, fn) in forms.items():
+        _, ms = event_ms(fn)
+        b = bound(pairs * PAIR_FLOPS[law], nbytes(tgt, src) + n * 12, pairs,
+                  mufu_rate(dev))
+        out[key] = dict(ms=ms, pairs=pairs, shape=[n, ns], **b)
+        log(f"(p.1) {key} pass at the flagship's N={n} (band window {width} "
+            f"of nb={nb} rows of {rows}): {ms:.2f} ms (CUDA events), "
+            f"{pairs / (ms * 1e-3):.4e} pairs/s; {describe(b, ms)}")
+    return out
+
+
+def p_single_pass(dev, xv, gm, soft, idx, want, eps2):
+    """(p.1) row 2, the single pass the flagship's steps take, at its
+    shape: the final state's operands in the slab order of the state one
+    drift (DT) earlier, as a step sorts them.  The force and the
+    self-masked potential, each one call timed by CUDA events, against
+    the float64 sum ``want`` at the ``idx`` targets (3e-6 of max) and, on
+    the last two target blocks (the last holds one row), against the plain
+    version at the kernel's split count S (2e-6 of max)."""
+    from nbody_streams_tpu_torch.benchmarks import flagship2m as fl
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    n = len(gm)
+    order = cd.slab_sort_key(torch.tensor(
+        xv[:, :3] - fl.DT * xv[:, 3:], dtype=torch.float32, device=dev))
+    tgt, src, _, nb, rows, width = sorted_operands(xv, gm, soft, dev,
+                                                   order=order)
+    ns = src.shape[1]
+    splits = cd.split_count(
+        "direct", n, ns,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    # the plain version's self mask pairs target row i with source column
+    # i: the slice's sources start at its first target
+    t0 = (-(-n // cd.TM) - 2) * cd.TM
+    tgt_tail = tgt[:, t0:].contiguous()
+    src_tail = torch.roll(src, -t0, dims=1).contiguous()
+    rows_of = torch.as_tensor(idx, device=dev)
+    out = {"nb": nb, "rows": rows, "width": width, "splits": splits}
+    for mode in ("acc", "pot"):
+        args = ("spline", mode, True, eps2, mode == "pot")
+        got, ms = event_ms(lambda: cd._direct_tile(tgt, src, *args))
+        full = torch.empty_like(got)
+        full[order] = got
+        sample = full[rows_of].cpu().numpy()
+        rel64 = np.abs(sample - want[mode]).max() / np.abs(want[mode]).max()
+        t_plain = time.perf_counter()
+        plain = cd._direct_tile_reference(tgt_tail, src_tail, *args,
+                                          splits=splits)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t_plain
+        rel, err = rel_err(got[t0:], plain)
+        flops = (PAIR_FLOPS if mode == "acc" else POT_FLOPS)["spline"]
+        b = bound(n * ns * flops, nbytes(tgt, src, got), n * ns,
+                  mufu_rate(dev))
+        log(f"(p.1) single pass (row 2) {mode} at the flagship's final "
+            f"state N={n}, sources {ns}, S={splits}, in the order one drift "
+            f"old (its band window {width} of nb={nb} rows of {rows}): "
+            f"{ms:.1f} ms (CUDA events), {n * ns / (ms * 1e-3):.4e} "
+            f"pairs/s; {describe(b, ms)}; vs the float64 sum at "
+            f"{len(idx)} targets {rel64:.3e} (tol 3e-6); vs plain on "
+            f"targets {t0:,}..{n - 1:,} {rel:.3e} (tol 2e-6; the plain "
+            f"version {t_plain:.1f} s wall)")
+        check(np.isfinite(sample).all() and rel64 <= 3e-6,
+              f"(p.1) single pass {mode} vs fp64: {rel64:.2e}")
+        check(torch.isfinite(got).all().item() and rel <= 2e-6,
+              f"(p.1) single pass {mode} vs plain: {rel:.2e}")
+        out[mode] = dict(ms=ms, pairs=n * ns, shape=[n, ns], rel64=rel64,
+                         rel=rel, max_abs_err=err, **b)
+    return out
+
+
+def p_gravity(dev, solver, pos, m, soft, idx, tag, phase="p.1"):
+    """The self-gravity force and self-masked potential of ``pos``
+    through a run's DirectGravity against the float64 sum at the ``idx``
+    targets (3e-6 of max); the branch each call took, and the float64
+    sums."""
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    rows = torch.as_tensor(idx, device=dev)
+    out, want = {}, {}
+    for mode, fn in (("acc", solver.accel), ("pot", solver.potential)):
+        want[mode] = direct64_at(pos, G * m, soft, idx, dev, "spline", mode,
+                                 chunk=(1024, 131072))
+        before = dict(cd.BRANCHES)
+        got = fn(pos)[rows].cpu().numpy()
+        taken = [k for k in before if cd.BRANCHES[k] > before[k]]
+        rel = np.abs(got - want[mode]).max() / np.abs(want[mode]).max()
+        log(f"({phase}) {tag}: DirectGravity {mode} vs the float64 sum at "
+            f"{len(idx)} targets: rel err {rel:.3e} (tol 3e-6), branch "
+            f"{taken}")
+        check(np.isfinite(got).all() and rel <= 3e-6 and len(taken) == 1,
+              f"({phase}) {tag} {mode}: {rel:.2e} vs fp64, branches {taken}")
+        out[mode] = {"rel": rel, "branch": taken[0]}
+    return out, want
+
+
+def p_field(dev, xv, t):
+    """(p.1) the MW+LMC field's force and potential at every initial point
+    on the card in float32 (its ms and the memory it adds) against float64
+    on the CPU at P_FIELD_SAMPLE of them, within FIELD_TOL."""
+    from nbody_streams_tpu_torch.potentials.mwlmc import load_mw_lmc_potential
+
+    pot64, _ = load_mw_lmc_potential(device="cpu")
+    gpu = copy.deepcopy(pot64).to(dev, torch.float32)
+    x32 = xv[:, :3].astype(np.float32)
+    x = torch.tensor(x32, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    f = gpu.force(x, t)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    phi = gpu.potential(x, t)
+    check(torch.isfinite(f).all().item() and torch.isfinite(phi).all().item(),
+          "(p.1) the field is not finite at the flagship's points")
+    idx = np.sort(np.random.default_rng(13).choice(len(xv), P_FIELD_SAMPLE,
+                                                   replace=False))
+    xc = torch.tensor(x32[idx].astype(np.float64))
+    rows = torch.as_tensor(idx, device=dev)
+    ef, _ = rel_err(f[rows].cpu(), pot64.force(xc, t))
+    ep, _ = rel_err(phi[rows].cpu(), pot64.potential(xc, t))
+    tol_f, tol_p = FIELD_TOL["MW+LMC"]
+    log(f"(p.1) MW+LMC field at the flagship's {len(xv):,} initial points "
+        f"(t={t:g}): force {ms:.1f} ms wall, {peak:.2f} GiB of device "
+        f"memory above its inputs; float32 card vs float64 CPU at "
+        f"{P_FIELD_SAMPLE} of them: force {ef:.3e} (tol {tol_f:g}), "
+        f"potential {ep:.3e} (tol {tol_p:g})")
+    check(ef < tol_f and ep < tol_p,
+          f"(p.1) MW+LMC at the flagship: {ef:.3e} / {ep:.3e}")
+    return {"ms": ms, "peak_gib": peak, "err": (ef, ep)}, pot64
+
+
+def p_flagship(dev, snaps):
+    """(p.1) the flagship at full width through its driver, 3 steps then a
+    resumed 3, with its checks; returns its launches, branches and
+    numbers."""
+    from nbody_streams_tpu_torch import bench, nbody_io
+    from nbody_streams_tpu_torch.benchmarks import flagship2m as fl
+    from nbody_streams_tpu_torch.friction import make_df_force_extra
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+
+    n = fl.N_TOTAL
+    t_start = -FLAGSHIP_STEPS * fl.DT
+    t0 = time.perf_counter()
+    xv0, species = fl.build_ics(n, device=dev)
+    ic_s = time.perf_counter() - t0
+    m = np.concatenate([np.broadcast_to(sp.mass, sp.N) for sp in species])
+    soft = np.concatenate([np.full(sp.N, sp.softening) for sp in species])
+    log(f"(p.1) build_ics at N={n:,}: {ic_s:.2f} s on the host")
+    check(xv0.shape == (n, 6) and np.isfinite(xv0).all(), "(p.1) ICs")
+    field, pot64 = p_field(dev, xv0, t_start)
+
+    # the run's solver (spline, float32 + Kahan, the CUDA kernels) on the
+    # start state against float64 at P_SAMPLE targets, the BH among them
+    solver = DirectGravity(m, soft, impl="cuda", device=dev)
+    idx = np.sort(np.append(np.random.default_rng(17).choice(
+        n - 1, P_SAMPLE - 1, replace=False), n - 1))
+    pos0 = torch.tensor(xv0[:, :3], dtype=torch.float32, device=dev)
+    grav = {"start": p_gravity(dev, solver, pos0, m, soft, idx,
+                               "t_start")[0]}
+    rows = p_sorted_rows(dev, xv0, G * m, soft, solver.eps2) or {}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "flagship"
+        zero_launches()
+        fl.run(n, FLAGSHIP_STEPS, device=dev, out=out, save_snapshots=snaps,
+               _stop_step=FLAGSHIP_STOP)
+        first = nbody_io._load_restart(out)
+        res = fl.run(n, FLAGSHIP_STEPS, device=dev, out=out,
+                     save_snapshots=snaps)
+        launches, branches = read_launches(), dict(cd.BRANCHES)
+        restart = nbody_io._load_restart(out)
+        summ = fl.summary(out)
+    check(first[2] == FLAGSHIP_STOP and first[8] is not None,
+          f"(p.1) the first attempt's restart is at step {first[2]}")
+    xv1 = restart[0]
+    check(restart[2] == FLAGSHIP_STEPS and np.array_equal(
+        xv1, np.concatenate([res[sp.name] for sp in species])),
+        f"(p.1) the restart file reads back at step {restart[2]}")
+    check(xv1.shape == (n, 6) and np.isfinite(xv1).all(),
+          "(p.1) the final state is not finite")
+    check(summ["steps"] == FLAGSHIP_STEPS and summ["attempts"] == 2,
+          f"(p.1) the summary counts {summ}")
+    check(launches["base"] + launches["single"] > 0,
+          f"(p.1) the flagship ran no direct kernel: {launches}")
+    radius = [np.linalg.norm(np.average(x[:, :3], axis=0, weights=m))
+              for x in (xv0, xv1)]
+    check(radius[1] < radius[0], f"(p.1) the CoM radius {radius}")
+    ms_step = 1e3 * summ["wall_s"] / summ["steps"]
+    log(f"(p.1) flagship N={n:,}: {summ['steps']} steps over "
+        f"{summ['attempts']} attempts (stopped at step {first[2]}, resumed "
+        f"to {restart[2]}) in {summ['wall_s']:.1f} s: {ms_step:.1f} ms a "
+        f"step with its start, energies and I/O, "
+        f"{n * n / ms_step / 1e6:.1f} Gint/s; CoM radius {radius[0]:.4f} -> "
+        f"{radius[1]:.4f} kpc; launches {launches}, branches {branches}")
+    pos1 = torch.tensor(xv1[:, :3], dtype=torch.float32, device=dev)
+    grav["final"], want = p_gravity(dev, solver, pos1, m, soft, idx,
+                                    "t = 0")
+    # row 2 as the steps run it, on the final state's operands in the
+    # order one drift old
+    single = p_single_pass(dev, xv1, G * m, soft, idx, want, solver.eps2)
+    rows["single"] = single["acc"]
+
+    # one KDK step as the run takes it (bench.measure builds the step as
+    # run_nbody does): its ms, and its CUDA kernels and device ms
+    # (profiler), from the start state
+    fx = make_df_force_extra(pot64, M_sat=fl.M_DARK + fl.M_STAR + fl.M_BH,
+                             t_start=t_start, t_end=0.0,
+                             coulomb_mode="variable", update_interval=10)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kdk = bench.measure(dev, windows=1, steps=1, case=(xv0, m),
+                        solver=solver, external_potential=pot64,
+                        force_extra=fx, dt=fl.DT, t0=t_start, warmup=0,
+                        profile_steps=1)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    cuda_events = [e for e in kdk["profile"].events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.device_time for e in cuda_events) / 1e3
+    # the gravity kernels of that step by name: the single pass (row 2)
+    # where its order, one drift old, widened the band window past the
+    # band, else the base and band passes (rows 1 and 3) and their combine
+    step_rows = {}
+    for e in cuda_events:
+        for key in ("direct_tile_kernel", "band_kernel", "combine_kernel"):
+            if key in e.name:
+                step_rows[key] = step_rows.get(key, 0.0) + e.device_time / 1e3
+    log(f"(p.1) one KDK step of the flagship: {kdk['ms_per_step']:.1f} ms "
+        f"({n * n / kdk['ms_per_step'] / 1e6:.1f} Gint/s), "
+        f"{len(cuda_events)} CUDA kernels, {dev_ms:.1f} device ms, busy "
+        f"share {dev_ms / kdk['ms_per_step']:.3f}; its gravity kernels' "
+        f"device ms {step_rows}; peak device memory {peak:.2f} GiB")
+
+    # the stars of the final state rendered on the card and the CPU, in
+    # the frame flagship2m.figures draws them (their centre of mass +-
+    # 4 kpc); the renderer's own frame spans +-64 kpc about the origin,
+    # where the 349,525 stars fall into a few 0.33 kpc pixels
+    n_dark, n_star = species[0].N, species[1].N
+    stars = slice(n_dark, n_dark + n_star)
+    com = np.average(xv1[stars, :2], axis=0, weights=m[stars])
+    render = render_checks(dev, xv1[stars, :3], m[stars],
+                           f"flagship stars ({n_star:,})",
+                           npix=P_RENDER_NPIX, phase="p.1",
+                           extent=(com[0] - 4.0, com[0] + 4.0,
+                                   com[1] - 4.0, com[1] + 4.0))
+    return launches, branches, {
+        "ic_s": ic_s, "field": field, "gravity": grav, "rows": rows,
+        "single_pass": single,
+        "ms_per_step": ms_step, "kdk_ms": kdk["ms_per_step"],
+        "kdk_kernels": len(cuda_events), "kdk_device_ms": dev_ms,
+        "kdk_rows_ms": step_rows,
+        "peak_gib": peak, "summary": summ, "render": render}
+
+
+def p_gates(dev, snaps):
+    """(p.2)-(p.4) northstar's argsort, gate2m and gate1m at full width,
+    the gates cut in depth, each gate's final state (its restart file)
+    held against the float64 sum at P_SAMPLE targets; their launches and
+    branches."""
+    from nbody_streams_tpu_torch import nbody_io
+    from nbody_streams_tpu_torch.benchmarks import northstar as ns
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+
+    argsort_ms = ns.run_argsort(device=dev)
+    log(f"(p.2) argsort of the x key at N=2,097,152: {argsort_ms:.4f} ms a "
+        "sort (CUDA events, median of 5)")
+    launches, branches, recs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for gate, run, steps, seed, kw in (
+                ("gate2m", ns.run_gate2m, GATE2M_STEPS, 1,
+                 {"save_snapshots": snaps}),
+                ("gate1m", ns.run_gate1m, GATE1M_STEPS, 2, {})):
+            phase = "p.3" if gate == "gate2m" else "p.4"
+            zero_launches()
+            rec = run(steps=steps, device=dev, out=Path(tmp) / gate, **kw)
+            launches[gate], branches[gate] = read_launches(), dict(
+                cd.BRANCHES)
+            de = rec["abs_dE_over_E"] if gate == "gate2m" else rec["value"]
+            log(f"({phase}) {gate} N={rec['n']:,}, {steps} steps: |dE/E| "
+                f"{de:.3e} (limit 1e-4), launches {launches[gate]}, "
+                f"branches {branches[gate]}")
+            check(np.isfinite(de) and de < 1e-4, f"{gate} |dE/E| {de:.3e}")
+            check(launches[gate]["base"] + launches[gate]["single"] > 0,
+                  f"{gate} ran no direct kernel: {launches[gate]}")
+            # the final state through the gate's solver against float64
+            restart = nbody_io._load_restart(Path(tmp) / gate)
+            check(restart[2] == steps, f"{gate}'s restart is at step "
+                                       f"{restart[2]}")
+            n, m = rec["n"], ns._plummer(rec["n"], seed)[1]
+            soft = np.full(n, ns.SOFTENING)
+            solver = DirectGravity(m, soft, impl="cuda", device=dev)
+            idx = np.sort(np.random.default_rng(19).choice(n, P_SAMPLE,
+                                                           replace=False))
+            pos = torch.tensor(restart[0][:, :3], dtype=torch.float32,
+                               device=dev)
+            rec["gravity"] = p_gravity(dev, solver, pos, m, soft, idx,
+                                       f"{gate} step {steps}", phase)[0]
+            recs[gate] = rec
+    check(recs["gate2m"]["restart"], "gate2m wrote no restart file")
+    return launches, branches, {"argsort_ms": argsort_ms, **recs}
+
+
+def phase_p(dev):
+    """The scale drivers on the card: the flagship at N = 2,097,153 and
+    the north-star gates at 2M and 1M, cut in depth."""
+    from nbody_streams_tpu_torch import nbody_io
+
+    t_phase = time.perf_counter()
+    snaps = nbody_io.H5PY_AVAILABLE
+    if not snaps:
+        log("(p) h5py is not installed: the drivers run with snapshots "
+            "off, and the restart files are read back instead")
+    launches, branches, flag = p_flagship(dev, snaps)
+    t_flag = time.perf_counter()
+    gate_launches, gate_branches, gates = p_gates(dev, snaps)
+    log(f"(p) wall {time.perf_counter() - t_phase:.1f} s (the flagship "
+        f"{t_flag - t_phase:.1f} s, the gates "
+        f"{time.perf_counter() - t_flag:.1f} s)")
+    return ({"flagship": launches, **gate_launches},
+            {"flagship": branches, **gate_branches}, {**flag, **gates})
+
+
 def phase_l(dev):
     """The potential forms of the direct kernels on the card: checked
     against their plain versions and the fp64 oracle, timed by CUDA
@@ -2745,7 +3135,9 @@ def phase_l(dev):
 
     # the self spline potential at the DF satellite: too compact for the
     # band, so the single pass (the bound_phi friction's potential)
-    tgt, src, _, nb, _, width = sorted_operands(*df_case(), dev)
+    xd, md = df_case()
+    tgt, src, _, nb, _, width = sorted_operands(xd, G * md,
+                                                np.full(len(md), H), dev)
     check(width > nb, f"DF satellite window {width} fits the band {nb}")
     splits = cd.split_count("direct", N_BENCH, src.shape[1], sms)
     form("df_potential", "self spline potential single pass (DF "
@@ -2758,7 +3150,8 @@ def phase_l(dev):
 
     # the sorted path at the bench case: the potential's base and band
     # passes (mask_self; at S = 1 and the wrapper's S), then rows 1 and 3
-    tgt, src, start, nb, _, width = sorted_operands(xv, m, dev)
+    tgt, src, start, nb, _, width = sorted_operands(
+        xv, G * m, np.full(len(m), H), dev)
     check(width <= nb, f"bench case window {width} > {nb}")
     ns = src.shape[1]
     base_pairs, band_pairs = N_BENCH * (ns - nb * cd.TN), N_BENCH * nb * cd.TN
@@ -2831,6 +3224,7 @@ def main():
     m_launches = phase_m(dev)
     n_launches, n_stats = phase_n(dev)
     o_launches, o_stats = phase_o(dev)
+    p_launches, p_branches, p_stats = phase_p(dev)
     slots = pot_stats["slots"]
     # no single PyTorch call computes a softened all-pairs sum or an
     # fma / rsqrt chain: library_ms is null for every kernel
@@ -2848,7 +3242,7 @@ def main():
     paths = {"bench": launches, **ext_launches, **df_launches,
              "quasispherical_run": scf_launches["quasispherical_run"],
              "scf_ladder": scf_launches["scf_ladder"], **m_launches,
-             **n_launches, **o_launches}
+             **n_launches, **o_launches, **p_launches}
 
     def row(name, key, replaces, st):
         by_path = {k: p[key] for k, p in paths.items()}
@@ -2874,7 +3268,18 @@ def main():
     # which branch the sorted path picked on the DF runs and phase (n)'s
     kernels[1]["branches_by_path"] = {
         **{k: df_stats[k]["branches"] for k in df_launches},
-        **n_stats["branches"]}
+        **n_stats["branches"], **p_branches}
+    # the flagship's kernels at N = 2,097,153 (p.1): rows 1 and 3 on the
+    # fresh order, row 2 on the order one drift old that its steps take
+    for i, key in ((0, "base"), (1, "single"), (2, "band")):
+        if key in p_stats["rows"]:
+            st = p_stats["rows"][key]
+            kernels[i]["at_flagship"] = {
+                "ms": st["ms"], "bound_ms": st["bound_ms"],
+                "bound_pipe": st["bound_pipe"], "shape": st["shape"],
+                "share": st["bound_ms"] / st["ms"]}
+    kernels[1]["at_flagship"]["max_abs_err"] = max(
+        p_stats["single_pass"][mode]["max_abs_err"] for mode in ("acc", "pot"))
     # the ring's forms of the single pass at its D = 4 tile shape (o.2)
     kernels[1]["ring_forms"] = {
         label: {**measured(st), "splits": st["splits"], "shape": st["shape"]}

@@ -180,6 +180,8 @@ def init_state(
     force_extra: ForceExtra | None = None,
     sort_fn=None,
     device=None,
+    comp=None,
+    extra_state=None,
 ) -> IntegratorState:
     """Build the initial state on ``device``, including the first force
     evaluation (at the resume time ``t0 + start_step*dt``).
@@ -188,22 +190,28 @@ def init_state(
     goes to the card, and without one the default raises (pass
     ``device='cpu'`` for the CPU).  Pass ``sort_fn`` (e.g.
     ``solver.sort_key``) when the chunks will run with ``presort=True`` so
-    the first force call already reuses an order."""
+    the first force call already reuses an order.  A resumed run passes
+    the Kahan compensations ``comp = (pos_c, vel_c)`` and the extra force's
+    ``extra_state`` it saved, in place of zeros and
+    ``force_extra.init_state``."""
     if device is None:
         device = pos.device if isinstance(pos, torch.Tensor) else "cuda"
     device = resolve_device(device)
     pos = _as_tensor(pos, dtype, device)
     vel = _as_tensor(vel, dtype, device)
     zeros = torch.zeros_like(pos)
+    pos_c, vel_c = ((zeros, torch.zeros_like(vel)) if comp is None
+                    else [_as_tensor(c, dtype, device) for c in comp])
     sort_order = sort_fn(pos) if sort_fn is not None else None
     t = t0 + start_step * dt
-    extra_state = (force_extra.init_state(pos, vel, mass, t)
-                   if force_extra is not None else ())
+    if extra_state is None:
+        extra_state = (force_extra.init_state(pos, vel, mass, t)
+                       if force_extra is not None else ())
     acc, ext_acc, extra_state = accel_fn(
         pos, vel, t, start_step, zeros, extra_state, refresh_ext=True,
         order=sort_order)
-    return IntegratorState(pos, vel, zeros, torch.zeros_like(vel), acc,
-                           ext_acc, extra_state, int(start_step), sort_order)
+    return IntegratorState(pos, vel, pos_c, vel_c, acc, ext_acc,
+                           extra_state, int(start_step), sort_order)
 
 
 _STATE_ARRAYS = ("pos", "vel", "pos_c", "vel_c", "acc", "ext_acc")

@@ -167,8 +167,15 @@ def _save_restart(
     species_names: list[str] | None = None,
     species_N: list[int] | None = None,
     filename: str = "restart.npz",
+    state: dict | None = None,
 ) -> None:
-    """Atomic-ish restart checkpoint (write temp then replace)."""
+    """Atomic-ish restart checkpoint (write temp then replace).
+
+    ``state`` (name -> array) adds the integrator's state beyond the phase
+    space, as ``state_<name>`` entries; the JAX package's reader ignores
+    them.  The archive is stored uncompressed: zlib took ~10-15 s a write
+    at N = 2M on the host (PERF.md, the scale drivers), several KDK steps;
+    ``np.load``, and so the JAX package's reader, reads either form."""
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     payload: dict = dict(
@@ -187,19 +194,23 @@ def _save_restart(
         )
     if species_N is not None:
         payload["species_N"] = np.array(species_N, dtype=np.int64)
+    for key, val in (state or {}).items():
+        payload[f"state_{key}"] = np.asarray(val)
 
     tmp = out / (filename + ".tmp")
     with open(tmp, "wb") as fh:
-        np.savez_compressed(fh, **payload)
+        np.savez(fh, **payload)
     tmp.replace(out / filename)
 
 
 def _load_restart(output_dir):
-    """Load restart state; returns an 8-tuple or None.
+    """Load restart state; returns a 9-tuple or None.
 
     ``(phase_space, time, step, snapshot_counter, mass_arr, softening_arr,
-    species_names, species_N)`` with None entries for fields absent in
-    older files (including the reference's 4-field format).
+    species_names, species_N, state)`` with None entries for fields absent
+    in older files (including the reference's 4-field format and the JAX
+    package's files, which hold no ``state``).  ``state`` is the dict
+    ``_save_restart`` was given.
     """
     path = Path(output_dir) / "restart.npz"
     if not path.exists():
@@ -224,6 +235,8 @@ def _load_restart(output_dir):
         mass_arr = opt("mass_arr")
         soft_arr = opt("softening_arr")
         ns = opt("species_N")
+        state = {k.removeprefix("state_"): np.array(data[k])
+                 for k in data.files if k.startswith("state_")} or None
     if names is not None:
         names = [
             n.decode("utf-8") if isinstance(n, (bytes, np.bytes_)) else str(n)
@@ -231,7 +244,7 @@ def _load_restart(output_dir):
         ]
     if ns is not None:
         ns = [int(v) for v in ns]
-    return (xv, t, step, counter, mass_arr, soft_arr, names, ns)
+    return (xv, t, step, counter, mass_arr, soft_arr, names, ns, state)
 
 
 def _update_snapshot_times(output_dir, snap_index: int, time: float) -> None:

@@ -27,6 +27,8 @@ from .constants import G_DEFAULT, validate_kernel, validate_precision
 from .integrate import (
     ForceExtra,
     IntegratorState,
+    _extra_from_numpy,
+    _extra_to_numpy,
     init_state,
     make_accel_fn,
     make_kdk_step,
@@ -77,6 +79,32 @@ class CallbackForceExtra(ForceExtra):
         if self.pad:
             out = torch.cat([out, out.new_zeros((self.pad, 3))])
         return out, state
+
+
+def _restart_state(state: IntegratorState, n: int) -> dict:
+    """What a resume needs besides the phase space, as numpy arrays: the
+    Kahan compensations of the ``n`` real rows and, when it is a dict (the
+    friction's), the extra force's state under ``extra_<key>``."""
+    out = {"pos_c": state.pos_c[:n], "vel_c": state.vel_c[:n]}
+    if isinstance(state.extra_state, dict):
+        out.update({f"extra_{k}": v for k, v in state.extra_state.items()})
+    return _extra_to_numpy(out)
+
+
+def _resumed_state(saved, pad: int, device):
+    """(comp, extra_state) for ``init_state`` from a restart file's
+    ``state`` (``_restart_state``), the compensations padded with ``pad``
+    zero ghost rows; None for what the file does not hold (the JAX
+    package's files hold neither)."""
+    if not saved:
+        return None, None
+    comp = None
+    if "pos_c" in saved:
+        comp = [np.pad(saved[k], ((0, pad), (0, 0)))
+                for k in ("pos_c", "vel_c")]
+    extra = {k.removeprefix("extra_"): v for k, v in saved.items()
+             if k.startswith("extra_")}
+    return comp, (_extra_from_numpy(extra, device) if extra else None)
 
 
 class _ChunkWatchdog:
@@ -222,6 +250,7 @@ def run_nbody(
     profile_dir: str | None = None,
     solver_factory=None,
     target_drift: float | None = None,
+    _stop_step: int | None = None,
 ) -> np.ndarray:
     """Run a KDK leapfrog N-body integration; returns final (N, 6) float64.
 
@@ -305,11 +334,13 @@ def run_nbody(
     start_step = 0
     t_now = float(time_start)
     snapshot_counter = None
+    saved_state = None
     xv = phase_space.copy()
     if continue_run:
         restart = _load_restart(output_path)
         if restart is not None:
             xv, t_now, start_step, saved_counter = restart[:4]
+            saved_state = restart[8]
             # reference-format files carry no counter: leave None so the
             # searchsorted fallback below reconstructs it from start_step
             snapshot_counter = (None if saved_counter is None
@@ -419,10 +450,14 @@ def run_nbody(
         ghost = np.repeat(xv[-1:], pad, axis=0)
         ghost[:, 3:] = 0.0
         xv_init = np.vstack([xv, ghost])
+    # a resume restores the compensations and the extra force's state its
+    # restart file holds, so that it continues the run it stopped
+    comp, extra0 = _resumed_state(saved_state, pad, device)
     state = init_state(
         xv_init[:, :3], xv_init[:, 3:], accel_fn, mass_dev, time_start,
         start_step=start_step, dt=dt, dtype=state_dtype, force_extra=fx,
         sort_fn=solver.sort_key if presort else None, device=device,
+        comp=comp, extra_state=extra0 if fx is not None else None,
     )
 
     e_ref = None
@@ -464,6 +499,15 @@ def run_nbody(
             ((start_step // restart_interval) + 1) * restart_interval,
             total_steps + 1, restart_interval))
     events.add(total_steps)
+    if _stop_step is not None:
+        # a private hook for the drivers' tests: this call ends at that
+        # step with its restart file written, as a run stopped at a
+        # checkpoint would, and a call with continue_run=True resumes it
+        if not start_step < _stop_step <= total_steps:
+            raise ValueError(
+                f"_stop_step={_stop_step} must lie in ({start_step}, "
+                f"{total_steps}]: after the start step and within the run")
+        events = {e for e in events if e < _stop_step} | {_stop_step}
     boundaries = sorted(e for e in events if e > start_step)
 
     last_xv = xv          # emergency payload: last *completed* state
@@ -471,6 +515,8 @@ def run_nbody(
     wd_t = time_start + start_step * dt
 
     def emergency_restart():
+        # the phase space alone: a resume from it starts the compensations
+        # and the extra force afresh, as the JAX package's resumes do
         _save_restart(last_xv, wd_t, wd_step, output_path, snapshot_counter,
                       **restart_kwargs)
         print(f"WATCHDOG: sub-chunk exceeded the {step_timeout_s}s/step "
@@ -545,7 +591,9 @@ def run_nbody(
                     snapshot_counter += 1
                 if due_restart:
                     _save_restart(xv_host, t_now, current, output_path,
-                                  snapshot_counter, **restart_kwargs)
+                                  snapshot_counter,
+                                  state=_restart_state(state, n),
+                                  **restart_kwargs)
             if verbose:
                 elapsed = pytime.perf_counter() - t_wall0
                 steps_done = current - start_step
@@ -567,14 +615,16 @@ def run_nbody(
     with boundary_guard():
         xv_final = fetch_xv(state)
     if current != total_steps:
-        # only when no boundary reached total_steps (resuming a finished
-        # run): save the ACTUAL step of the state, never total_steps
+        # when no boundary reached total_steps (resuming a finished run,
+        # or a _stop_step): save the ACTUAL step of the state, never
+        # total_steps
         _save_restart(xv_final, t_now, current, output_path,
-                      snapshot_counter, **restart_kwargs)
+                      snapshot_counter, state=_restart_state(state, n),
+                      **restart_kwargs)
 
     if verbose:
         wall = pytime.perf_counter() - t_wall0
-        steps_done = total_steps - start_step
+        steps_done = current - start_step
         if steps_done > 0 and wall > 0:
             print(f"Done: {steps_done} steps in {wall:.2f} s "
                   f"({steps_done / wall:.1f} steps/s, "

@@ -42,7 +42,7 @@ __all__ = ["run_simulation"]
 _DIRECT_KW = {
     "precision", "kernel", "external_update_interval", "impl", "devices",
     "block_size", "nan_check", "step_timeout_s", "profile_dir",
-    "target_drift",
+    "target_drift", "_stop_step",
 }
 _DF_KW = {
     "df_M_sat", "df_coulomb_mode", "df_fixed_ln_lambda", "df_core_gamma",

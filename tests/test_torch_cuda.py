@@ -31,7 +31,9 @@ within chip_smoke.SPRAY_TOL of float64 on the CPU; unbinding's
 self-potential within 2e-6 of its plain version.  The SPH render on the
 card within chip_smoke.RENDER_TOL of the same render on the CPU, holding
 the frame's mass within chip_smoke.MASS_TOL; the native host library's
-kNN on the card machine within chip_smoke.KNN_TOL of cKDTree.
+kNN on the card machine within chip_smoke.KNN_TOL of cKDTree.  The
+scale drivers: the flagship stopped and resumed within 1e-6 of max of an
+unbroken run, gate1m's |dE/E| < 1e-4.
 """
 import copy
 
@@ -790,3 +792,46 @@ def test_ring_method_tree_run_on_the_card(dev, tmp_path):
     assert tree.shape == (n, 6) and np.isfinite(tree).all()
     scale = np.abs(direct[:, :3]).max()
     assert np.abs(tree[:, :3] - direct[:, :3]).max() < 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_flagship_resumes_on_the_card(dev, tmp_path):
+    """The flagship driver at N = 16,385 on the card: 2 steps, then a
+    resumed 2 (the restart file carries the Kahan compensations and the
+    friction's state), against an unbroken 4-step run within 1e-6 of max;
+    the summary counts 4 steps over 2 attempts."""
+    from nbody_streams_tpu_torch import nbody_io
+    from nbody_streams_tpu_torch.benchmarks import flagship2m as fl
+
+    n, steps = 16385, 4
+    kw = dict(device=dev, save_snapshots=nbody_io.H5PY_AVAILABLE)
+    before = dict(cd.LAUNCHES)
+    whole = fl.run(n, steps, out=tmp_path / "whole", **kw)
+    assert sum(cd.LAUNCHES.values()) > sum(before.values())
+    fl.run(n, steps, out=tmp_path / "split", _stop_step=2, **kw)
+    assert nbody_io._load_restart(tmp_path / "split")[2] == 2
+    split = fl.run(n, steps, out=tmp_path / "split", **kw)
+    assert list(split) == ["dark", "stars", "bh"]
+    for name in whole:
+        assert np.isfinite(split[name]).all()
+        for sl in (slice(0, 3), slice(3, 6)):
+            scale = np.abs(whole[name][:, sl]).max()
+            assert (np.abs(split[name][:, sl] - whole[name][:, sl]).max()
+                    <= 1e-6 * scale)
+    total = fl.summary(tmp_path / "split")
+    assert total["steps"] == steps and total["attempts"] == 2
+
+
+@pytest.mark.cuda
+def test_gate1m_on_the_card(dev, tmp_path):
+    """northstar's gate1m at N = 16,384 for 4 steps on the card by
+    default: |dE/E| < 1e-4 from its float64 bracket, through the sorted
+    path's kernels, with the card's peak memory in its line."""
+    from nbody_streams_tpu_torch.benchmarks import northstar as ns
+
+    before = dict(cd.LAUNCHES)
+    rec = ns.run_gate1m(n=16384, steps=4, out=tmp_path / "g")
+    assert rec["value"] < 1e-4 and rec["steps"] == 4
+    assert rec["device"] == torch.cuda.get_device_name(dev)
+    assert rec["peak_hbm_gb"] > 0
+    assert cd.LAUNCHES["base"] > before["base"]

@@ -162,7 +162,9 @@ def test_import_leaves_jax_out():
             "nbody_streams_tpu_torch.viz.healpix, "
             "nbody_streams_tpu_torch.native, nbody_streams_tpu_torch.cli, "
             "nbody_streams_tpu_torch.parallel, "
-            "nbody_streams_tpu_torch.benchmarks.ring_scaling")
+            "nbody_streams_tpu_torch.benchmarks.ring_scaling, "
+            "nbody_streams_tpu_torch.benchmarks.flagship2m, "
+            "nbody_streams_tpu_torch.benchmarks.northstar")
     code = (f"import sys, {mods}; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nbody_streams_tpu' not in sys.modules; "
