@@ -11,7 +11,8 @@ roofline, speed of light, tile sweep, bench suite), the external fields,
 dynamical friction, the SCF tier, the samplers, the reference's drop-in
 names with the one-card tree tier, stream generation (particle spray,
 restricted N-body), unbinding, the command line, the ring over virtual
-shards and the scale drivers (the 2M flagship, the 1M and 2M gates).
+shards, the scale drivers (the 2M flagship, the 1M and 2M gates) and the
+tensor-core forms of the direct kernels (kernels M and F).
 Phases:
 
   (a) card name and power limit; kernel build time; each force kernel's
@@ -145,12 +146,30 @@ Phases:
       CPU; (p.2) northstar's argsort at 2M; (p.3) gate2m at N = 2,097,152
       for 3 of its 100 steps and (p.4) gate1m at N = 1,048,576 for 20 of
       its 1,000, each with |dE/E| < 1e-4 from its float64 bracket
+  (q) the tensor-core forms of the direct kernels (csrc/moment.cu): (q.1)
+      kernel M (folded, unfolded) and kernel F (acc, pot) as the sorted
+      base pass at the bench case, centred, against their plain versions
+      (MOMENT_TOL, FAST_TOL), timed by CUDA events beside rows 1 and 3
+      timed in the same call, with their bounds (the tensor pipe added);
+      (q.2) M's two-set form at the ring's D = 4 far tile against its
+      plain version, timed beside row 2's Newtonian tile; (q.3) the sorted path with M, M unfolded and F
+      against the float64 sum at RING_SAMPLE targets (3e-6; F
+      FAST_FP64_TOL); (q.4) F's guarantees on the fast tier test's
+      clustered data at N = 65,536 (finite, max < 0.5, median < 5e-3 acc
+      and < 1e-3 pot); (q.5) 3 x 100 KDK steps of the bench case with
+      tile_config {'mxu': True} and with precision='float32_fast' (ms/step,
+      |dE/E| < 1e-4); (q.6) gate1m with target_drift=1e-8 (M unfolded) for
+      GATE1M_STEPS steps, its final state's force against the float64 sum
+      at P_SAMPLE targets (3e-6) and M at that shape against its plain
+      version on the last two target tiles (MOMENT_TOL); (q.7) the ring with mxu=True over RING_RUN_D
+      virtual shards at (120, -80, 40) within 2e-6 of one card.  The
+      default paths of phases (d)-(p) launch neither M nor F.
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card, and
 the one before that a JSON object of the kernels: for the force kernels
-the launches of each run path of phases (d), (i), (j), (k), (m), (n), (o)
-and (p) under ``launches_by_path``, counted by kernel form (the base pass, the single
+the launches of each run path of phases (d), (i), (j), (k), (m), (n), (o),
+(p) and (q) under ``launches_by_path``, counted by kernel form (the base pass, the single
 pass, the band pass) where the wrapper launches it, and in phase (g)'s
 measurement path for the roofline kernels; max error and times from
 (b)/(g)/(k)/(l) (tile_sol at full occupancy, the shape where it bounds
@@ -179,6 +198,7 @@ N_BENCH = 65536
 DT = 2e-5
 H = 0.05
 SOURCE = "nbody_streams_tpu_torch/csrc/direct.cu"
+MOMENT_SOURCE = "nbody_streams_tpu_torch/csrc/moment.cu"
 ROOFLINE_SOURCE = "nbody_streams_tpu_torch/csrc/roofline.cu"
 # the chains (K links per pass, passes) for the kernel-vs-plain checks: the
 # probe's K, where the chains sit at their fixed point, and a K below it,
@@ -193,6 +213,9 @@ OCC_COPIES = 16
 # is the card's own (SM count x 16 x max clock, probe.card_peaks)
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# dense TF32 on the tensor cores (NVIDIA's data sheet, H100 SXM); a
+# 3xTF32 product issues three of them
+PEAK_TF32 = 495e12
 # FP32 operations a pair, the rsqrt counted as one.  Newtonian force with
 # Kahan: 3 subtracts, 6 for r^2 + eps2, 1 rsqrt, 3 multiplies (inv^3 and
 # G m), 6 for the three multiply-adds into the sum (direct_math.cuh).
@@ -340,6 +363,25 @@ GATE1M_STEPS = 4
 P_SAMPLE = 4096        # float64 targets of the flagship's force checks
 P_FIELD_SAMPLE = 65536  # float64 CPU points of its field check
 P_RENDER_NPIX = 384
+# (q), the tensor-core forms (csrc/moment.cu).  Kernel vs plain version:
+# kernel M 2e-6 of max with Kahan (as rows 1-3); kernel F
+# by its measured bound (the cross term's products summed in another
+# order, amplified as (|x| / r)^2 in r^2; PERF.md §6)
+MOMENT_TOL = 2e-6
+FAST_TOL = {"acc": 2e-5, "pot": 3e-6}
+FAST_FP64_TOL = 2e-5
+#: the base pass's forms: (mode, fold_mass, fast)
+MOMENT_FORMS = {"fold": ("acc", True, False), "unfold": ("acc", False, False),
+                "fast": ("acc", True, True), "fast_pot": ("pot", True, True)}
+MOMENT_KERNELS = {"fold": "kernel M", "unfold": "kernel M, unfolded",
+                  "fast": "kernel F", "fast_pot": "kernel F, potential"}
+# FP32 operations a pair (an FMA counted as two): the Newtonian factor
+# (dx, r^2, the cube: 11; F's expanded r^2 takes 7 where dx and r^2 take
+# 9), the TF32 split of the factor (2), its add into the tile's moments
+# (1) and, unfolded, G m (1); and TF32 tensor FLOPs a pair: 3 passes of
+# m16n8k8 (2 x 16 x 8 x 8) over 16 x 8 pairs, F twice that
+MOMENT_FLOPS = {"fold": 14, "unfold": 15, "fast": 12, "fast_pot": 10}
+TENSOR_FLOPS = {"fold": 48, "unfold": 48, "fast": 96, "fast_pot": 96}
 
 
 def log(msg):
@@ -370,14 +412,15 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(flops, nbytes, rsqrts, mufu_per_s):
+def bound(flops, nbytes, rsqrts, mufu_per_s, tensor_flops=0):
     """The least time the card could take for a kernel's work: the largest
     of its FP32 operations over PEAK_FP32, its rsqrts over the card's MUFU
-    rate and its bytes over PEAK_BYTES.  A dict of ``bound_ms``,
-    ``bound_by`` ('operations' or 'bytes'), ``bound_pipe`` (which of
-    'fp32', 'mufu' and 'bytes' sets it) and ``fp32_bound_ms``, the FP32
-    time alone."""
+    rate, its TF32 tensor-core FLOPs over PEAK_TF32 and its bytes over
+    PEAK_BYTES.  A dict of ``bound_ms``, ``bound_by`` ('operations' or
+    'bytes'), ``bound_pipe`` (which of 'fp32', 'mufu', 'tensor' and
+    'bytes' sets it) and ``fp32_bound_ms``, the FP32 time alone."""
     times = {"fp32": flops / PEAK_FP32, "mufu": rsqrts / mufu_per_s,
+             "tensor": tensor_flops / PEAK_TF32,
              "bytes": nbytes / PEAK_BYTES}
     pipe = max(times, key=times.get)
     return {"bound_ms": times[pipe] * 1e3,
@@ -1388,7 +1431,7 @@ def phase_k(dev):
         cd.LAUNCHES[key] = 0
     rows = scf_bench.run_ladder(device=dev)
     launches["scf_ladder"] = dict(cd.LAUNCHES)
-    check(cd.LAUNCHES == {"base": 0, "single": 1, "band": 0},
+    check(cd.LAUNCHES == {**dict.fromkeys(cd.LAUNCHES, 0), "single": 1},
           f"the ladder's reference did not take the single pass once: "
           f"{cd.LAUNCHES}")
     record = ladder_record()
@@ -2932,18 +2975,15 @@ def p_flagship(dev, snaps):
         f"share {dev_ms / kdk['ms_per_step']:.3f}; its gravity kernels' "
         f"device ms {step_rows}; peak device memory {peak:.2f} GiB")
 
-    # the stars of the final state rendered on the card and the CPU, in
-    # the frame flagship2m.figures draws them (their centre of mass +-
-    # 4 kpc); the renderer's own frame spans +-64 kpc about the origin,
-    # where the 349,525 stars fall into a few 0.33 kpc pixels
+    # the stars of the final state rendered on the card and the CPU in
+    # the renderer's own frame (+-64 kpc about the origin), where the
+    # 349,525 stars fall into a few 0.33 kpc pixels: the splat's float64
+    # grid holds their mass there (a float32 grid lost 3.5e-5 of it)
     n_dark, n_star = species[0].N, species[1].N
     stars = slice(n_dark, n_dark + n_star)
-    com = np.average(xv1[stars, :2], axis=0, weights=m[stars])
     render = render_checks(dev, xv1[stars, :3], m[stars],
                            f"flagship stars ({n_star:,})",
-                           npix=P_RENDER_NPIX, phase="p.1",
-                           extent=(com[0] - 4.0, com[0] + 4.0,
-                                   com[1] - 4.0, com[1] + 4.0))
+                           npix=P_RENDER_NPIX, phase="p.1")
     return launches, branches, {
         "ic_s": ic_s, "field": field, "gravity": grav, "rows": rows,
         "single_pass": single,
@@ -3020,6 +3060,330 @@ def phase_p(dev):
         f"{time.perf_counter() - t_flag:.1f} s)")
     return ({"flagship": launches, **gate_launches},
             {"flagship": branches, **gate_branches}, {**flag, **gates})
+
+
+def q_forms(dev, stats):
+    """(q.1) kernels M (folded, unfolded) and F (acc, pot) as the base pass
+    at the bench case, on the centred frame the sorted path gives them,
+    against their plain versions at the wrapper's S; times by CUDA events
+    beside rows 1 and 3 (re-timed here) and their bounds."""
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    xv, m = plummer_case(N_BENCH, 2)
+    centred = xv[:, :3] - xv[:, :3].mean(0)
+    tgt, src, start, nb, rows, _ = sorted_operands(
+        centred, G * m, np.full(len(m), H), dev)
+    ns = src.shape[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = cd.split_count("direct", N_BENCH, ns, sms, nb, cd.TN)
+    pairs = N_BENCH * (ns - nb * cd.TN)
+    mufu = mufu_rate(dev)
+    out = {}
+    for name, (mode, fold, fast) in MOMENT_FORMS.items():
+        tol = FAST_TOL[mode] if fast else MOMENT_TOL
+
+        def fn(s=None, mode=mode, fold=fold, fast=fast):
+            return cd._moment_tile(tgt, src, "newtonian", mode, True, 1e-15,
+                                   fold, fast, nb=nb, start=start, splits=s)
+
+        def ref(mode=mode, fold=fold, fast=fast):
+            return cd._moment_tile_reference(
+                tgt, src, "newtonian", mode, True, 1e-15, fold, fast, nb=nb,
+                start=start, splits=splits)
+
+        got, want = fn(), ref()
+        check(torch.equal(got, fn(splits)),
+              f"(q.1) {name}: the wrapper's S is not split_count's {splits}")
+        rel, absolute = rel_err(got, want)
+        check(torch.isfinite(got).all().item() and rel < tol,
+              f"(q.1) {name} at N={N_BENCH}: {rel:.2e} >= {tol} of its "
+              "plain version")
+        ms = cuda_ms(fn, 20)
+        plain_ms = cuda_ms(ref, 2)
+        b = bound(pairs * MOMENT_FLOPS[name], nbytes(tgt, src, start, got),
+                  pairs, mufu, pairs * TENSOR_FLOPS[name])
+        out[name] = dict(max_abs_err=absolute, rel=rel, ms=ms,
+                         plain_ms=plain_ms, splits=splits, tol=tol, **b)
+        log(f"(q.1) {name} ({MOMENT_KERNELS[name]}) at N={N_BENCH} (nb={nb} "
+            f"of {rows} rows), S={splits}: rel err {rel:.2e} (tol {tol:g}),"
+            f" {ms:.4f} ms vs plain {plain_ms:.2f} ms; "
+            f"{pairs / (ms * 1e-3):.6e} pairs/s; {describe(b, ms)}")
+    for label, fn in (
+            ("row 1 (VPU base pass, acc)", lambda: cd._direct_tile(
+                tgt, src, "newtonian", "acc", True, 1e-15, False, nb, start)),
+            ("row 1 potential form", lambda: cd._direct_tile(
+                tgt, src, "newtonian", "pot", True, 1e-15, True, nb, start)),
+            ("row 3 (band pass, acc)", lambda: cd._band(
+                tgt, src, start, "acc", True, 1e-15, False, cd.TM, cd.TN,
+                nb))):
+        ms = cuda_ms(fn, 20)
+        out[label] = ms
+        log(f"(q.1) {label} in the same call: {ms:.4f} ms (phase b: "
+            f"{stats['direct' if 'row 1' in label else 'band']['ms']:.4f} ms "
+            "for the acc forms)")
+    return out
+
+
+def q_two_set(dev):
+    """(q.2) kernel M's two-set form at the ring's D = RING_TILE_D far-tile
+    shape (the sorted bench case's shard 1 against shard 3, centred)
+    against its plain version, timed beside row 2's Newtonian tile.  (A
+    self block is no far tile, and the form is built for none: its
+    unsoftened close pairs, r ~ 1e-3 here, would cancel ~1,000-fold in
+    the finalisation.)"""
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+    from nbody_streams_tpu_torch.parallel.sharded import (
+        slab_sort_for_sharding)
+
+    xv, m = plummer_case(N_BENCH, 2)
+    xv, m = slab_sort_for_sharding(xv, m)
+    pos = torch.tensor(xv[:, :3] - xv[:, :3].mean(0), dtype=torch.float32,
+                       device=dev)
+    nl = len(m) // RING_TILE_D
+    gm = torch.tensor(m * G, dtype=torch.float32, device=dev)
+    pre = cd._soft_pre("newtonian", torch.full(
+        (len(m),), H, dtype=torch.float32, device=dev))
+    tgt = cd._targets(pos[nl:2 * nl], pre[nl:2 * nl])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mufu = mufu_rate(dev)
+    src = cd._sources(pos[3 * nl:4 * nl], gm[3 * nl:4 * nl],
+                      pre[3 * nl:4 * nl], cd.BLOCK)
+    splits = cd.split_count("direct", nl, src.shape[1], sms)
+    args = (tgt, src, "newtonian", "acc", True, 1e-15)
+    got = cd._moment_tile(*args)
+    rel, absolute = rel_err(got, cd._moment_tile_reference(
+        *args, splits=splits))
+    check(torch.isfinite(got).all().item() and rel < MOMENT_TOL,
+          f"(q.2) two-set far tile: {rel:.2e} >= {MOMENT_TOL}")
+    ms = cuda_ms(lambda: cd._moment_tile(*args), 20)
+    plain_ms = cuda_ms(lambda: cd._moment_tile_reference(
+        *args, splits=splits), 2)
+    vpu_ms = cuda_ms(lambda: cd._direct_tile(*args), 20)
+    pairs = nl * src.shape[1]
+    b = bound(pairs * MOMENT_FLOPS["fold"], nbytes(tgt, src, got), pairs,
+              mufu, pairs * TENSOR_FLOPS["fold"])
+    log(f"(q.2) two-set far tile at {nl} x {src.shape[1]}, S={splits}: rel "
+        f"err {rel:.2e} (tol {MOMENT_TOL:g}), {ms:.4f} ms vs plain "
+        f"{plain_ms:.2f} ms, row 2's Newtonian tile {vpu_ms:.4f} ms; "
+        f"{describe(b, ms)}")
+    return dict(max_abs_err=absolute, rel=rel, ms=ms, plain_ms=plain_ms,
+                splits=splits, shape=[nl, src.shape[1]], vpu_ms=vpu_ms, **b)
+
+
+def q_fp64(dev):
+    """(q.3) the sorted path with kernel M (folded, unfolded) and F, force
+    and potential, against the float64 sum at RING_SAMPLE targets of the
+    bench case: M within 3e-6 (the JAX package's tolerance; a lost 3xTF32
+    split costs ~1e-3), F within FAST_FP64_TOL."""
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    xv, m = plummer_case(N_BENCH, 2)
+    pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+    mt = torch.tensor(m, dtype=torch.float32, device=dev)
+    ht = torch.full((N_BENCH,), H, dtype=torch.float32, device=dev)
+    idx = np.sort(np.random.default_rng(17).choice(N_BENCH, RING_SAMPLE,
+                                                   replace=False))
+    rows = torch.as_tensor(idx, device=dev)
+    want = {mode: direct64_at(xv[:, :3], G * m, H, idx, dev, "spline", mode)
+            for mode in ("acc", "pot")}
+    out = {}
+    for label, kw, tol in (
+            ("M", dict(tile={"mxu": True}), 3e-6),
+            ("M unfolded", dict(tile={"mxu": True, "fold_mass": False}),
+             3e-6),
+            ("F", dict(fast=True), FAST_FP64_TOL),
+            ("VPU", {}, 3e-6)):
+        for mode, fn in (("acc", cd.cuda_accel), ("pot", cd.cuda_potential)):
+            got = fn(pos, mt, ht, G, "spline", True, **kw)[rows].cpu()
+            rel, _ = rel_err(got, torch.as_tensor(want[mode]))
+            out[f"{label} {mode}"] = rel
+            check(rel < tol, f"(q.3) {label} {mode} vs fp64: {rel:.2e} >= "
+                             f"{tol}")
+    log("(q.3) the sorted path vs the fp64 sum at "
+        f"{RING_SAMPLE} targets: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in out.items())
+        + f" (tol 3e-6; F {FAST_FP64_TOL:g})")
+    return out
+
+
+def q_fast_bounds(dev):
+    """(q.4) kernel F's guarantees on test_fast_tier_bounded_and_finite's
+    clustered data at N = 65,536 (a core with outliers to 300 length
+    units), against the default path: finite; per target max < 0.5,
+    median < 5e-3 (acc) and < 1e-3 (pot)."""
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+
+    rng = np.random.default_rng(31)
+    n = N_BENCH
+    r = 1.0 / np.sqrt(rng.uniform(1e-5, 1.0, n))
+    u = rng.normal(size=(n, 3))
+    pos = torch.tensor(u / np.linalg.norm(u, axis=1, keepdims=True)
+                       * np.minimum(r, 300.0)[:, None], dtype=torch.float32,
+                       device=dev)
+    gm = torch.tensor(rng.uniform(0.5, 1.5, n) * G, dtype=torch.float32,
+                      device=dev)
+    soft = torch.full((n,), H, dtype=torch.float32, device=dev)
+    out = {}
+    for mode, fn, med_tol in (("acc", cd.cuda_accel, 5e-3),
+                              ("pot", cd.cuda_potential, 1e-3)):
+        before = dict(cd.BRANCHES)
+        ref = fn(pos, gm, soft, 1.0, "spline", True).double()
+        fast = fn(pos, gm, soft, 1.0, "spline", True, fast=True).double()
+        two = cd.BRANCHES["two_pass"] - before["two_pass"]
+        if mode == "acc":
+            den = ref.norm(dim=1)
+            err = (fast - ref).norm(dim=1) / den.clamp(min=den.mean() * 1e-3)
+        else:
+            err = (fast - ref).abs() / ref.abs().mean()
+        finite = bool(torch.isfinite(fast).all())
+        mx, med = err.max().item(), err.median().item()
+        out[mode] = dict(max=mx, median=med, two_pass=two)
+        log(f"(q.4) F {mode} on the clustered data at N={n}: finite "
+            f"{finite}, max {mx:.3e} (< 0.5), median {med:.3e} (< {med_tol}),"
+            f" two-pass calls {two} of 2")
+        check(finite and mx < 0.5 and med < med_tol,
+              f"(q.4) F {mode}: max {mx:.3e}, median {med:.3e}")
+        check(two == 2, f"(q.4) F {mode} took the single pass")
+    return out
+
+
+def q_gate1m_state(dev, xyz, n):
+    """(q.6) gate1m's final state (its restart file) at the shape kernel M
+    took there: the force through DirectGravity(target_drift=1e-8)
+    against the float64 sum at P_SAMPLE targets (3e-6 of max; the
+    potential, the row sum, beside it), and kernel M unfolded on the
+    sorted, centred operands of that state against its plain version on
+    the last two target tiles at the wrapper's S (MOMENT_TOL)."""
+    from nbody_streams_tpu_torch.benchmarks import northstar as ns
+    from nbody_streams_tpu_torch.ops import cuda_direct as cd
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+
+    m = ns._plummer(n, 2)[1]
+    soft = np.full(n, ns.SOFTENING)
+    solver = DirectGravity(m, soft, impl="cuda", device=dev,
+                           target_drift=1e-8)
+    idx = np.sort(np.random.default_rng(19).choice(n, P_SAMPLE,
+                                                   replace=False))
+    pos = torch.tensor(xyz, dtype=torch.float32, device=dev)
+    before = cd.LAUNCHES["moment"]
+    gravity = p_gravity(dev, solver, pos, m, soft, idx,
+                        f"gate1m step {GATE1M_STEPS}, target_drift=1e-8",
+                        "q.6")[0]
+    check(cd.LAUNCHES["moment"] > before,
+          "(q.6) the final state's force ran no kernel M")
+    # the sorted path's operands of this state, centred as _self_sorted
+    # centres them for the moment form
+    order = cd.slab_sort_key(pos)
+    centred = pos - pos[order].mean(0, keepdim=True)
+    tgt, src, start, nb, rows, width = sorted_operands(
+        centred, G * m, soft, dev, order=order)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = cd.split_count("direct", n, src.shape[1], sms, nb, cd.TN)
+    got = cd._moment_tile(tgt, src, "newtonian", "acc", solver.kahan,
+                          solver.eps2, False, nb=nb, start=start)
+    last = 2 * cd.TM
+    want = cd._moment_tile_reference(
+        tgt[:, -last:].contiguous(), src, "newtonian", "acc", solver.kahan,
+        solver.eps2, False, nb=nb, start=start[-2:].contiguous(),
+        splits=splits)
+    rel, absolute = rel_err(got[-last:], want)
+    log(f"(q.6) kernel M unfolded at gate1m's final state (nb={nb} of "
+        f"{rows} rows, band window {width}), S={splits}: the last {last} "
+        f"targets vs plain rel err {rel:.2e} (tol {MOMENT_TOL:g})")
+    check(torch.isfinite(got).all().item() and rel < MOMENT_TOL,
+          f"(q.6) kernel M at gate1m's shape: {rel:.2e} >= {MOMENT_TOL}")
+    return {"gravity": gravity, "moment_rel": rel, "moment_abs": absolute,
+            "splits": splits, "nb": nb}
+
+
+def q_runs(dev):
+    """(q.5) 3 x 100 KDK steps of the bench case (bench.measure) with
+    tile_config {'mxu': True} and with precision='float32_fast', each with
+    its launches zeroed before and read after: ms/step and |dE/E| (the
+    1e-4 contract); (q.6) gate1m at N = 1,048,576 for GATE1M_STEPS steps
+    with target_drift=1e-8 (kernel M unfolded): ms/step and |dE/E| from
+    its float64 bracket, then its final state (``q_gate1m_state``); (q.7) the ring over ['cuda:0'] * RING_RUN_D with
+    mxu=True on the slab-sorted bench case at (120, -80, 40) against one
+    card, within 2e-6."""
+    from nbody_streams_tpu_torch import bench, nbody_io
+    from nbody_streams_tpu_torch.benchmarks import northstar as ns
+    from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
+    from nbody_streams_tpu_torch.parallel.sharded import (
+        slab_sort_for_sharding)
+
+    launches, out = {}, {}
+    xv, m = plummer_case(N_BENCH, 2)
+    for path, kw in (("q_mxu_kdk", dict(tile_config={"mxu": True})),
+                     ("q_fast_kdk", dict(precision="float32_fast"))):
+        solver = DirectGravity(m, np.full(len(m), H), kernel="spline",
+                               impl="cuda", device=dev, **kw)
+        zero_launches()
+        r = bench.measure(dev, windows=3, steps=100, solver=solver,
+                          precision=kw.get("precision", "float32_kahan"))
+        launches[path] = read_launches()
+        out[path] = {"ms_per_step": r["ms_per_step"],
+                     "windows_ms": r["windows_ms"], "de": r["de"]}
+        key = "fast" if "precision" in kw else "moment"
+        log(f"(q.5) {path}: {r['ms_per_step']:.3f} ms/step (windows "
+            f"{', '.join(f'{w:.3f}' for w in r['windows_ms'])}), |dE/E| "
+            f"{r['de']:.2e} over {r['steps']} steps; launches "
+            f"{launches[path]}")
+        check(r["de"] < 1e-4, f"(q.5) {path} |dE/E| {r['de']:.2e}")
+        check(launches[path][key] > 0 and launches[path]["base"]
+              == (0 if key == "fast" else launches[path]["base"]),
+              f"(q.5) {path} did not run kernel {key}: {launches[path]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        rec = ns.run_gate1m(steps=GATE1M_STEPS, device=dev,
+                            out=Path(tmp) / "gate1m", target_drift=1e-8)
+        launches["q_gate1m"] = read_launches()
+        restart = nbody_io._load_restart(Path(tmp) / "gate1m")
+    out["gate1m"] = {k: rec[k] for k in ("value", "ms_per_step", "steps",
+                                         "n", "wall_s")}
+    log(f"(q.6) gate1m with target_drift=1e-8, N={rec['n']:,}, "
+        f"{rec['steps']} steps: {rec['ms_per_step']:.1f} ms/step, |dE/E| "
+        f"{rec['value']:.3e} (limit 1e-4); launches {launches['q_gate1m']}")
+    check(np.isfinite(rec["value"]) and rec["value"] < 1e-4,
+          f"(q.6) gate1m |dE/E| {rec['value']:.3e}")
+    check(launches["q_gate1m"]["moment"] > 0,
+          f"(q.6) gate1m ran no kernel M: {launches['q_gate1m']}")
+    check(restart[2] == GATE1M_STEPS,
+          f"(q.6) gate1m's restart is at step {restart[2]}")
+    out["gate1m"].update(q_gate1m_state(dev, restart[0][:, :3], rec["n"]))
+    xs, ms_ = slab_sort_for_sharding(xv, m)
+    xs = xs + np.array([120.0, -80.0, 40.0, 0.0, 0.0, 0.0])
+    h = np.full(len(ms_), H)
+    pos = torch.tensor(xs[:, :3], dtype=torch.float32, device=dev)
+    one = DirectGravity(ms_, h, G=G, impl="cuda", device=dev).accel(pos)
+    ring = DirectGravity(ms_, h, G=G, impl="sharded",
+                         devices=[str(dev)] * RING_RUN_D,
+                         sharded_opts={"mxu": True})
+    zero_launches()
+    got = ring.accel(pos)
+    torch.cuda.synchronize()
+    launches["q_ring"] = read_launches()
+    rel, _ = rel_err(got, one)
+    out["ring"] = dict(rel=rel, d=RING_RUN_D)
+    log(f"(q.7) the ring with mxu=True over {RING_RUN_D} virtual shards at "
+        f"(120, -80, 40): rel err {rel:.2e} vs one card (tol 2e-6); "
+        f"launches {launches['q_ring']}")
+    check(rel < 2e-6, f"(q.7) ring mxu {rel:.2e} >= 2e-6")
+    check(launches["q_ring"]["moment_2set"] > 0,
+          f"(q.7) the ring ran no far tile in kernel M: {launches['q_ring']}")
+    return launches, out
+
+
+def phase_q(dev, stats):
+    """The tensor-core forms of the direct kernels: kernels M and F."""
+    t0 = time.perf_counter()
+    forms = q_forms(dev, stats)
+    two_set = q_two_set(dev)
+    fp64 = q_fp64(dev)
+    bounds = q_fast_bounds(dev)
+    launches, runs = q_runs(dev)
+    log(f"(q) wall {time.perf_counter() - t0:.1f} s")
+    return launches, {"forms": forms, "two_set": two_set, "fp64": fp64,
+                      "fast_bounds": bounds, **runs}
 
 
 def phase_l(dev):
@@ -3225,6 +3589,7 @@ def main():
     n_launches, n_stats = phase_n(dev)
     o_launches, o_stats = phase_o(dev)
     p_launches, p_branches, p_stats = phase_p(dev)
+    q_launches, q_stats = phase_q(dev, stats)
     slots = pot_stats["slots"]
     # no single PyTorch call computes a softened all-pairs sum or an
     # fma / rsqrt chain: library_ms is null for every kernel
@@ -3243,14 +3608,37 @@ def main():
              "quasispherical_run": scf_launches["quasispherical_run"],
              "scf_ladder": scf_launches["scf_ladder"], **m_launches,
              **n_launches, **o_launches, **p_launches}
+    # the default paths take no tensor-core form: M and F run only where
+    # an option asks for them (phase q's paths)
+    tensor = {k: {f: p.get(f, 0) for f in ("moment", "moment_2set", "fast")}
+              for k, p in paths.items()}
+    check(not any(sum(v.values()) for v in tensor.values()),
+          f"a default path launched kernel M or F: {tensor}")
+    paths.update(q_launches)
 
-    def row(name, key, replaces, st):
-        by_path = {k: p[key] for k, p in paths.items()}
-        return {"name": name, "route": "cuda", "source": SOURCE,
+    def row(name, key, replaces, st, source=SOURCE):
+        by_path = {k: p.get(key, 0) for k, p in paths.items()}
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, **measured(st),
                 "library_ms": None, "splits": st["splits"]}
 
+    forms = q_stats["forms"]
+    tensor_rows = [
+        # rows 1m, 1f and 2m: the tensor-core forms (phase q)
+        row("moment_tile_kernel M (base pass)", "moment",
+            "nbody_streams_tpu/ops/pallas_direct.py:301 (_tile_sum mxu "
+            ":244-273, finalised :467-469)", forms["fold"], MOMENT_SOURCE),
+        row("moment_tile_kernel F (base pass, float32_fast)", "fast",
+            "nbody_streams_tpu/ops/pallas_direct.py:301 (_tile_sum mxu_r2 "
+            ":211-227)", forms["fast"], MOMENT_SOURCE),
+        row("moment_tile_kernel M (two-set, the ring's far tile)",
+            "moment_2set", "nbody_streams_tpu/ops/pallas_direct.py:771 "
+            "(pallas_accel_2set mxu=True, _direct_kernel :301)",
+            q_stats["two_set"], MOMENT_SOURCE)]
+    tensor_rows[0]["unfolded"] = measured(forms["unfold"])
+    tensor_rows[1]["potential"] = measured(forms["fast_pot"])
+    tensor_rows[2]["shape"] = q_stats["two_set"]["shape"]
     kernels = [
         # rows 1 and 3: the sorted path's two passes at the bench case
         row("direct_tile_kernel (base pass)", "base",
@@ -3309,6 +3697,7 @@ def main():
     kernels[-1].update(blocks=roof_stats["tile_sol"]["blocks"],
                        reps=roof_stats["tile_sol"]["reps"],
                        slots=slots["tile_sol_kernel<NEWTONIAN>"])
+    kernels += tensor_rows
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

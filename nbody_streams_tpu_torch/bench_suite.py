@@ -18,12 +18,13 @@ CUDA events.  ``--device cpu`` runs sections 1-5 through the plain-torch
 oracle (``impl='torch'``) under the host clock, a CPU number for tests;
 section 6 is ``bench.measure`` per precision tier and needs a CUDA
 device.  The float64 rows always run the torch oracle: the kernels are
-fp32-only by design.  ``float32_fast`` keeps its row and label but runs
-as plain float32 (the dispatch warns).  ``main`` returns the measured
-rows as a dict, with the device's name.  ``--sharded`` runs the sharded
-row instead (``main_sharded``): the ring of shards against one device,
-on 8 virtual shards of the card by default (``--device cpu`` for 8 CPU
-shards).
+fp32-only by design.  ``float32_fast`` has its row on the sorted spline
+path (spline, N >= 16,384), where the card runs kernel F; the CPU's
+torch oracle runs it as plain float32 (the dispatch warns).  ``main``
+returns the measured rows as a dict, with the device's name.
+``--sharded`` runs the sharded row instead (``main_sharded``): the ring
+of shards against one device, on 8 virtual shards of the card by default
+(``--device cpu`` for 8 CPU shards).
 """
 from __future__ import annotations
 
@@ -82,8 +83,8 @@ def main(argv=None):
         print("SECTION 1: force kernels (Gint/s = N^2 pair interactions/s)")
         rows = {}
         for kernel in ("spline", "plummer", "dehnen_k1", "newtonian"):
-            # float32_fast has its row where the TPU had the tier (the
-            # sorted spline path); here it runs as float32 with a warning
+            # float32_fast only exists on the slab-sorted spline path
+            # (kernel F); elsewhere it is plain float32
             tiers = ("float32_kahan", "float32", "float32_fast") \
                 if kernel == "spline" and n >= 16384 \
                 else ("float32_kahan", "float32")

@@ -1,6 +1,8 @@
 """The north-star scale gates on the card, one JSON line each.
 
     python -m nbody_streams_tpu_torch.benchmarks.northstar {argsort,gate2m,gate1m}
+    python -m nbody_streams_tpu_torch.benchmarks.northstar gate1m \
+        [--steps N] [--target-drift X] [--out DIR]
 
 Counterpart of the repo's ``benchmarks/northstar.py``:
 
@@ -12,6 +14,9 @@ Counterpart of the repo's ``benchmarks/northstar.py``:
   |dE/E| from a float64 energy bracket on the host;
 * ``gate1m``: N = 1,048,576 Plummer, 1,000 steps, the |dE/E| < 1e-4 gate;
   a rerun resumes from the restart file a stopped attempt left.
+  ``--steps`` cuts the depth, ``--target-drift`` goes to the solver (below
+  1e-7 the unfolded moment form, kernel M), ``--out`` names the output
+  directory.
 
 The energy bracket sums KE and 0.5 sum m phi in float64 on the host, phi
 from ``DirectGravity(impl='cuda')`` (the kernels' potential form).  The
@@ -172,10 +177,12 @@ def run_gate2m(n=2_097_152, steps=100, device=None, out=OUT_2M,
     })
 
 
-def run_gate1m(n=1_048_576, steps=1000, device=None, out=OUT_1M):
+def run_gate1m(n=1_048_576, steps=1000, device=None, out=OUT_1M,
+               target_drift=None):
     """N = 1M Plummer over ``steps`` steps, the |dE/E| < 1e-4 gate,
     resuming from a restart file an earlier attempt left; returns the JSON
-    record."""
+    record.  ``target_drift`` goes to the solver (below 1e-7 the base pass
+    takes the unfolded moment form, kernel M)."""
     from ..sim import run_simulation
 
     device = _device(device)
@@ -192,7 +199,8 @@ def run_gate1m(n=1_048_576, steps=1000, device=None, out=OUT_1M):
             start_step = int(data["step"])
         resume = 0 < start_step < steps
     kw = dict(architecture=_arch(device), method="direct", impl="cuda",
-              save_snapshots=False, verbose=True, step_timeout_s=60)
+              save_snapshots=False, verbose=True, step_timeout_s=60,
+              target_drift=target_drift)
     if not resume:
         # warm-up: builds and first-launches the kernels
         run_simulation(xv, species, 0.0, WARMUP_STEPS * DT, DT,
@@ -220,15 +228,24 @@ def run_gate1m(n=1_048_576, steps=1000, device=None, out=OUT_1M):
 
 
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else list(argv)
-    mode = argv[0] if argv else "argsort"
-    if mode not in ("argsort", "gate2m", "gate1m") or len(argv) > 1:
-        raise SystemExit("usage: python -m nbody_streams_tpu_torch."
-                         "benchmarks.northstar {argsort,gate2m,gate1m}")
-    if mode == "argsort":
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m nbody_streams_tpu_torch.benchmarks.northstar")
+    ap.add_argument("mode", nargs="?", default="argsort",
+                    choices=("argsort", "gate2m", "gate1m"))
+    ap.add_argument("--steps", type=int, default=1000,
+                    help="gate1m: KDK steps (default 1000)")
+    ap.add_argument("--target-drift", type=float, default=None,
+                    help="gate1m: the solver's target_drift")
+    ap.add_argument("--out", default=OUT_1M,
+                    help=f"gate1m: output directory (default {OUT_1M})")
+    args = ap.parse_args(sys.argv[1:] if argv is None else list(argv))
+    if args.mode == "argsort":
         run_argsort()
-    elif mode == "gate1m":
-        run_gate1m()
+    elif args.mode == "gate1m":
+        run_gate1m(steps=args.steps, out=args.out,
+                   target_drift=args.target_drift)
     else:
         have_h5py = importlib.util.find_spec("h5py") is not None
         if not have_h5py:

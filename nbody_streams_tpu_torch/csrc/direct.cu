@@ -68,18 +68,6 @@ namespace {
 
 using namespace nbody;
 
-// Split s of S's share [lo, hi) of n units: the shares differ by one unit
-// at most, and they tile [0, n) in order.
-__device__ __forceinline__ void split_range(int n, int& lo, int& hi) {
-  const long long s = blockIdx.y, S = gridDim.y;
-  lo = static_cast<int>(s * n / S);
-  hi = static_cast<int>((s + 1) * n / S);
-}
-
-__device__ __forceinline__ int clamp_tile(long long k, int tiles) {
-  return static_cast<int>(k < 0 ? 0 : (k > tiles ? tiles : k));
-}
-
 // The block's result for target i: to out when the grid has one split,
 // else (total, comp) to split blockIdx.y of the scratch.
 template <int MODE>
@@ -111,29 +99,6 @@ __device__ __forceinline__ void accumulate(float total[3], float comp[3],
     if (KAHAN) kahan_add(total[c], comp[c], p[c]);
     else total[c] += p[c];
   }
-}
-
-// With SKIP, the tiles [band_lo, band_lo + band_n) of the block's band
-// rows [start[t], start[t] + nb) of tn sources, t the block's band tile.
-template <bool SKIP>
-__device__ __forceinline__ void band_tiles(const int* __restrict__ start,
-                                           int tm, int tn, int nb, int tiles,
-                                           int& band_lo, int& band_n) {
-  band_lo = band_n = 0;
-  if (SKIP) {
-    const int per_row = tn / BLOCK;
-    const long long lo = static_cast<long long>(
-        start[(blockIdx.x * BLOCK) / tm]) * per_row;
-    const long long hi = lo + static_cast<long long>(nb) * per_row;
-    band_lo = clamp_tile(lo, tiles);
-    band_n = clamp_tile(hi, tiles) - band_lo;
-  }
-}
-
-// The source tile of the split-local index k: the tiles outside the band,
-// in order.
-__device__ __forceinline__ int tile_of(int k, int band_lo, int band_n) {
-  return k < band_lo ? k : k + band_n;
 }
 
 // The potential forms of direct_tile_kernel: POT_TPT targets a thread,

@@ -1,6 +1,7 @@
 // Pair arithmetic of the all-pairs kernels, shared by direct.cu (the force
-// kernels) and roofline.cu (tile_sol_kernel, their speed of light), so that
-// both run the identical instructions.
+// kernels), moment.cu (their tensor-core forms) and roofline.cu
+// (tile_sol_kernel, their speed of light), so that all run the identical
+// instructions.
 //
 // Layout: targets are (4, nt) float32 rows x, y, z, pre; sources are
 // (5, ns) float32 rows x, y, z, G*m, pre with ns a multiple of BLOCK (zero
@@ -10,6 +11,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace nbody {
 
@@ -113,6 +116,51 @@ __device__ __forceinline__ float pot_pre(float r2, float pre) {
   }
 }
 
+// Tensor-core products (moment.cu).  A TF32 operand keeps 10 of fp32's 23
+// mantissa bits, so one TF32 product keeps about three decimal digits: the
+// Hopper form of the TPU's bf16 operand trap (the JAX package pins every
+// matrix-unit contraction to Precision.HIGHEST for it).  Every product
+// therefore goes through mma_3xtf32: each operand is split as hi =
+// rna_tf32(a) and lo = rna_tf32(a - hi), and d += lo.hi + hi.lo, then
+// hi.hi, into the fp32 fragment; only lo.lo (~2^-22 relative) is dropped.
+// mma_tf32_1pass is the one place that issues the instruction, and only
+// mma_3xtf32 calls it (tests/test_torch_moment.py holds csrc/ to that).
+__device__ __forceinline__ uint32_t rna_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// (hi, lo) of one operand: a == hi + lo to ~2^-22 relative.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = rna_tf32(a);
+  lo = rna_tf32(a - __uint_as_float(hi));
+}
+
+// d += A(16x8, row) B(8x8, col) in one TF32 pass: m16n8k8, g = lane / 4,
+// t = lane % 4; a = {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]},
+// b = {B[t][g], B[t+4][g]}, d = {D[g][2t], D[g][2t+1], D[g+8][2t],
+// D[g+8][2t+1]} (PTX ISA, "Matrix Fragments for mma.m16n8k8", .tf32).
+__device__ __forceinline__ void mma_tf32_1pass(float d[4], const uint32_t a[4],
+                                               const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += A B to fp32 accuracy from split operands (3xTF32): the small cross
+// terms first, the large product last.
+__device__ __forceinline__ void mma_3xtf32(float d[4], const uint32_t a_hi[4],
+                                           const uint32_t a_lo[4],
+                                           const uint32_t b_hi[2],
+                                           const uint32_t b_lo[2]) {
+  mma_tf32_1pass(d, a_lo, b_hi);
+  mma_tf32_1pass(d, a_hi, b_lo);
+  mma_tf32_1pass(d, a_hi, b_hi);
+}
+
 // Kahan two-sum: (total, comp) += delta
 __device__ __forceinline__ void kahan_add(float& total, float& comp,
                                           float delta) {
@@ -120,6 +168,42 @@ __device__ __forceinline__ void kahan_add(float& total, float& comp,
   const float t = total + y;
   comp = (t - total) - y;
   total = t;
+}
+
+// The source-stream splits and the band skip of direct.cu and moment.cu.
+// Split s of S's share [lo, hi) of n units: the shares differ by one unit
+// at most, and they tile [0, n) in order.
+__device__ __forceinline__ void split_range(int n, int& lo, int& hi) {
+  const long long s = blockIdx.y, S = gridDim.y;
+  lo = static_cast<int>(s * n / S);
+  hi = static_cast<int>((s + 1) * n / S);
+}
+
+__device__ __forceinline__ int clamp_tile(long long k, int tiles) {
+  return static_cast<int>(k < 0 ? 0 : (k > tiles ? tiles : k));
+}
+
+// With SKIP, the tiles [band_lo, band_lo + band_n) of the block's band
+// rows [start[t], start[t] + nb) of tn sources, t the block's band tile.
+template <bool SKIP>
+__device__ __forceinline__ void band_tiles(const int* __restrict__ start,
+                                           int tm, int tn, int nb, int tiles,
+                                           int& band_lo, int& band_n) {
+  band_lo = band_n = 0;
+  if (SKIP) {
+    const int per_row = tn / BLOCK;
+    const long long lo = static_cast<long long>(
+        start[(blockIdx.x * BLOCK) / tm]) * per_row;
+    const long long hi = lo + static_cast<long long>(nb) * per_row;
+    band_lo = clamp_tile(lo, tiles);
+    band_n = clamp_tile(hi, tiles) - band_lo;
+  }
+}
+
+// The source tile of the split-local index k: the tiles outside the band,
+// in order.
+__device__ __forceinline__ int tile_of(int k, int band_lo, int band_n) {
+  return k < band_lo ? k : k + band_n;
 }
 
 struct Target {

@@ -1,7 +1,8 @@
 """Build ``csrc/*.cu`` with nvcc at first use and bind it with ctypes.
 
-The kernels have a plain C interface (no PyTorch headers), so one nvcc
-call builds them in seconds.  The shared library goes to
+The kernels have a plain C interface (no PyTorch headers).  One nvcc
+process a source compiles it to an object, all of them started together,
+and one more links the objects into a shared library.  The library goes to
 ``build/nbody_torch_kernels/<hash of sources and flags>/`` beside the
 package (``NBODY_TORCH_BUILD_DIR`` overrides the root), so a changed source
 never loads a stale build.  Nothing here runs at import: the CPU path never
@@ -22,7 +23,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[2]
 # no --use_fast_math: the Kahan sums and the h = 0 selects need IEEE FP32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "libnbody_torch_kernels.so"
 
 _lib = None
@@ -60,14 +61,33 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), os.getpid()
+    jobs = []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (rc={proc.returncode}):\n{out[-4000:]}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (rc={proc.returncode}):\n"
+                          f"{proc.stderr[-4000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)   # atomic: a concurrent build never sees a torn file
     return lib
 
@@ -84,6 +104,9 @@ def library() -> ctypes.CDLL:
         lib.nbody_band.argtypes = [i, i, i, p, i, p, i, p, i, i, i, f, i, p,
                                    p, p]
         lib.nbody_band.restype = i
+        lib.nbody_moment.argtypes = [i, i, i, i, i, p, i, p, i, p, i, i, f,
+                                     i, p, p, p]
+        lib.nbody_moment.restype = i
         lib.nbody_rsqrt_pair.argtypes = [p, i, p, p, p]
         lib.nbody_rsqrt_pair.restype = i
         lib.nbody_block_size.argtypes = []

@@ -1,7 +1,8 @@
 """Hand-written CUDA all-pairs forces and potentials, and their host side.
 
 Counterpart of ``nbody_streams_tpu/ops/pallas_direct.py``.  Two kernels in
-``csrc/direct.cu`` carry the direct-summation path:
+``csrc/direct.cu`` carry the default direct-summation path, and one in
+``csrc/moment.cu`` the TPU's matrix-unit forms:
 
 * ``direct_tile_kernel`` (``_direct_tile``): every target against every
   source, five softening laws, acceleration or potential, Kahan across
@@ -10,6 +11,13 @@ Counterpart of ``nbody_streams_tpu/ops/pallas_direct.py``.  Two kernels in
   ``_direct_kernel``.
 * ``band_kernel`` (``_band``): the full spline over exactly those band
   rows.  It replaces the TPU's ``_band_kernel``.
+* ``moment_tile_kernel`` (``_moment_tile``): the same sums as moments on
+  the tensor cores, P = S @ G m [x y z 1] finalised as a_i = P[:3] -
+  x_i P[3] (kernel M; ``fold_mass=False`` keeps G m in S), and with
+  ``fast`` r^2 expanded with its cross term on the tensor cores (kernel
+  F, the ``float32_fast`` tier, acc and pot).  It replaces the TPU's
+  ``_direct_kernel`` with ``mxu`` / ``mxu_r2``, for the Newtonian law
+  and no self pair: the sorted base pass and the ring's far tiles.
 
 Each splits every target block's source stream across S blocks (the
 base pass its tiles outside the band, the band pass its band rows), so
@@ -17,7 +25,8 @@ that N = 65,536 fills the card; ``split_count`` picks S from the launch
 shape and the card's SM count, S = 1 once the target blocks alone make
 four waves.  For S > 1 the wrapper allocates the scratch of the partial
 sums and the kernel's second launch, ``combine_kernel``, adds them in a
-fixed order.
+fixed order (``moment_finalise_kernel`` for the moment forms, which also
+finalise).
 
 In potential mode ``mask_self`` excludes the pairs at identical index.
 Such a pair can lie only in a block's diagonal tile (the source tile whose
@@ -25,20 +34,25 @@ first index is the block's first target index, as tiles and target blocks
 both start at multiples of BLOCK), so the kernels test for it there alone.
 
 Beside each wrapper is its plain torch version (``_direct_tile_reference``,
-``_band_reference``), with the same masking, splits and Kahan grouping.
-A wrapper runs the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches by form: ``base`` (``direct_tile_kernel`` with the band skip),
-``single`` (without it: the single pass and the two-set calls) and
-``band``.
+``_band_reference``, ``_moment_tile_reference``), with the same masking,
+splits and Kahan grouping.  A wrapper runs the plain version only for
+tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
+``LAUNCHES`` counts kernel launches by form: ``base``
+(``direct_tile_kernel`` with the band skip), ``single`` (without it: the
+single pass and the two-set calls), ``band``, ``moment`` (kernel M as the
+base pass), ``moment_2set`` (kernel M's two-set form, the ring's far
+tiles) and ``fast`` (kernel F as the base pass, acc or pot).
 
 The host side mirrors the TPU path: for the spline at N >= 16384 the
 particles are sorted along x (``slab_sort_key``), a band window of source
 rows is found for each target tile, and when every window fits the static
 band width ``nb`` the Newtonian base pass (``skip_band``) plus the spline
 band pass run; otherwise the single-pass spline kernel does.  Every pair is
-evaluated exactly once with its exact factor either way.  Sums stay in the
-s*dx form (the TPU's matrix-unit moment forms are not ported).
+evaluated exactly once with its exact factor either way.  The base pass
+takes kernel M with ``tile={'mxu': True}`` and kernel F with ``fast``;
+both centre the coordinates first.  By default it stays in the s*dx form
+(``mxu=None`` is the VPU form here, where the TPU defaults to its matrix
+unit: ROADMAP Queue 3).
 
 Masses arrive pre-multiplied by G.  Pair rule ``h_eff = max(h_i, h_j)``
 and ``eps2`` regularisation match ``ops/pairwise.py`` (the oracle).
@@ -77,7 +91,8 @@ SPLIT_WAVES = 4
 MIN_SPLIT_TILES = 8
 
 #: Kernel launches, counted by the wrappers where they launch (plain ints).
-LAUNCHES = {"base": 0, "single": 0, "band": 0}
+LAUNCHES = {"base": 0, "single": 0, "band": 0, "moment": 0,
+            "moment_2set": 0, "fast": 0}
 #: Which branch the sorted path picked (two-pass or single-pass fallback);
 #: counted where it picks, so its launches are in LAUNCHES.
 BRANCHES = {"two_pass": 0, "single_pass": 0}
@@ -289,24 +304,20 @@ def _combine(total, comp, kahan):
     return out
 
 
-def _direct_tile_reference(tgt, src, kind, mode, kahan, eps2,
-                           mask_self=False, nb=0, start=None, tm=TM, tn=TN,
-                           splits=1):
-    """Plain torch version of ``direct_tile_kernel``: all targets at once,
-    one staged tile of BLOCK sources per step, plain fp32 within the tile
-    and Kahan across tiles; with ``nb`` the tiles inside each target
-    tile's band ``[start*tn, (start+nb)*tn)`` are left out.  The tiles a
-    target sums are shared in order among ``splits`` partial sums, which
-    ``_combine`` adds."""
+def _tile_walk(tgt, src, width, kahan, nb, start, tm, tn, splits, part_of):
+    """The tile walk of the plain versions of ``direct_tile_kernel`` and
+    ``moment_tile_kernel``: all targets at once, one staged tile of BLOCK
+    sources per step (``part_of(j0)``: its (nt, width) sum), Kahan across
+    tiles; with ``nb`` the tiles inside each target tile's band
+    ``[start*tn, (start+nb)*tn)`` are left out.  The tiles a target sums
+    are shared in order among ``splits`` partial sums, which ``_combine``
+    adds: (nt, width)."""
     nt, ns = tgt.shape[1], src.shape[1]
     tiles = ns // BLOCK
     dev = tgt.device
-    xt, yt, zt, pt = (tgt[k][:, None] for k in range(4))
-    width = 3 if mode == "acc" else 1
     total = torch.zeros((splits, nt, width), dtype=tgt.dtype, device=dev)
     comp = torch.zeros_like(total)
     rows = torch.arange(nt, device=dev)
-    lane = torch.arange(BLOCK, device=dev)[None, :]
     lo = torch.zeros(nt, dtype=torch.int64, device=dev)
     band = torch.zeros_like(lo)       # each target's band tiles [lo, +band)
     if nb:
@@ -315,18 +326,38 @@ def _direct_tile_reference(tgt, src, kind, mode, kahan, eps2,
         band = (first + nb * (tn // BLOCK)).clamp(0, tiles) - lo
     count = (tiles - band).clamp(min=1)
     for jt in range(tiles):
-        j0 = jt * BLOCK
-        part = _pair_sum(kind, mode, eps2, xt, yt, zt, pt,
-                         *(src[k, j0:j0 + BLOCK][None, :] for k in range(5)),
-                         self_pair=(rows[:, None] == j0 + lane)
-                         if mask_self else None)
+        part = part_of(jt * BLOCK)
         keep = (jt < lo) | (jt >= lo + band)
         k = torch.where(jt < lo, jt, jt - band)
         s = _split_of(k, count, splits).clamp(0, splits - 1)
         t, c = _kahan_step(total[s, rows], comp[s, rows], part, kahan,
                            keep[:, None])
         total[s, rows], comp[s, rows] = t, c
-    out = _combine(total, comp, kahan)
+    return _combine(total, comp, kahan)
+
+
+def _self_lanes(nt, j0, device):
+    """(nt, BLOCK) bool: target i is source j0 + lane."""
+    rows = torch.arange(nt, device=device)[:, None]
+    return rows == j0 + torch.arange(BLOCK, device=device)[None, :]
+
+
+def _direct_tile_reference(tgt, src, kind, mode, kahan, eps2,
+                           mask_self=False, nb=0, start=None, tm=TM, tn=TN,
+                           splits=1):
+    """Plain torch version of ``direct_tile_kernel``: plain fp32 within a
+    staged tile, Kahan across tiles, the band and the splits of
+    ``_tile_walk``."""
+    xt, yt, zt, pt = (tgt[k][:, None] for k in range(4))
+
+    def part_of(j0):
+        return _pair_sum(kind, mode, eps2, xt, yt, zt, pt,
+                         *(src[k, j0:j0 + BLOCK][None, :] for k in range(5)),
+                         self_pair=_self_lanes(tgt.shape[1], j0, tgt.device)
+                         if mask_self else None)
+
+    out = _tile_walk(tgt, src, 3 if mode == "acc" else 1, kahan, nb, start,
+                     tm, tn, splits, part_of)
     return out if mode == "acc" else out[:, 0]
 
 
@@ -465,6 +496,121 @@ def _band(tgt, src, start, mode, kahan, eps2, mask_self, tm, tn, nb,
     return out
 
 
+# ---------------------------------------------------------------------------
+# moment_tile_kernel (kernels M and F) and its plain version
+# ---------------------------------------------------------------------------
+
+class _fp32_matmul:
+    """Products in full fp32 on the card: ``torch.backends.cuda.matmul.
+    allow_tf32 = False`` inside the block (restored after), so that the
+    plain version of a tensor-core kernel is no TF32 product itself."""
+
+    def __enter__(self):
+        self._was = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self._was
+
+
+def _check_moment_form(kind, mode, fold, fast, nb):
+    """The forms ``moment_tile_kernel`` is built in (``nbody_moment``),
+    all with the Newtonian law and no self pair: the sorted base pass
+    (``nb`` > 0; the band holds every self pair) as kernel M (acc, folded
+    or not) or kernel F (``fast``: acc, or pot); the two-set acc (``nb`` =
+    0), folded: the ring's far tiles, whose blocks are never the targets'
+    own."""
+    if mode not in _MODES:
+        raise ValueError(f"mode must be 'acc' or 'pot', got {mode!r}")
+    if kind != "newtonian":
+        raise ValueError("the moment forms take the Newtonian law (the "
+                         f"ring's far tiles, the sorted base pass); got "
+                         f"kind={kind!r}")
+    if not nb and (mode != "acc" or not fold or fast):
+        raise ValueError("the two-set moment form is the folded "
+                         "acceleration (fast needs the sorted base pass)")
+    if mode == "pot" and not fast:
+        raise ValueError("the potential's moment form is kernel F's "
+                         "(fast=True); the plain row sum runs on "
+                         "direct_tile_kernel")
+
+
+def _moment_tile_reference(tgt, src, kind, mode, kahan, eps2, fold=True,
+                           fast=False, nb=0, start=None, tm=TM, tn=TN,
+                           splits=1):
+    """Plain torch version of ``moment_tile_kernel``: per staged tile the
+    pair factors S (r^2 expanded with ``fast``) and the moments S @ B in
+    fp32 (``_fp32_matmul``), Kahan across tiles, the band and splits of
+    ``_tile_walk``, then acc = P[:, :3] - x_t P[:, 3] or phi = P[:, 0]."""
+    xt, yt, zt, pt = (tgt[k][:, None] for k in range(4))
+    if fast:
+        t3 = tgt[:3].T
+        a_t = xt * xt + (yt * yt + (zt * zt + eps2))
+
+    def part_of(j0):
+        xs, ys, zs, gm, ps = (src[k, j0:j0 + BLOCK][None, :]
+                              for k in range(5))
+        if fast:
+            cross = t3 @ src[:3, j0:j0 + BLOCK]
+            b_s = xs * xs + (ys * ys + zs * zs)
+            dxx = xs - xt
+            r2 = torch.maximum(a_t + (b_s - 2.0 * cross), dxx * dxx + eps2)
+        else:
+            dx, dy, dz = xs - xt, ys - yt, zs - zt
+            r2 = dx * dx + (dy * dy + (dz * dz + eps2))
+        pre = _pair_pre(kind, pt, ps)
+        if mode == "acc":
+            s = _force_pre(kind, r2, pre)
+            if fold:
+                b = torch.cat([gm * xs, gm * ys, gm * zs, gm])
+            else:
+                s = gm * s
+                b = torch.cat([xs, ys, zs, torch.ones_like(xs)])
+        else:
+            s, b = _pot_pre(kind, r2, pre), gm
+        return s @ b.T
+
+    with _fp32_matmul():
+        p = _tile_walk(tgt, src, 4 if mode == "acc" else 1, kahan, nb,
+                       start, tm, tn, splits, part_of)
+    if mode == "acc":
+        return p[:, :3] - tgt[:3].T * p[:, 3:4]
+    return p[:, 0]
+
+
+def _moment_tile(tgt, src, kind, mode, kahan, eps2, fold=True, fast=False,
+                 nb=0, start=None, tm=TM, tn=TN, splits=None):
+    """The moment sums of ``tgt`` (4, nt) against ``src`` (5, ns) through
+    ``moment_tile_kernel`` and its finalisation: (nt, 3) for acc, (nt,)
+    for pot.  The forms: ``_check_moment_form``.  The caller centres the
+    coordinates.  ``splits`` forces S (default: ``split_count`` on a
+    card, 1 on the CPU)."""
+    validate_kernel(kind)
+    _check_operands(tgt, src, start, nb, tm, tn)
+    _check_moment_form(kind, mode, fold, fast, nb)
+    splits = _splits("direct", tgt, src, nb, tn, splits)
+    if not tgt.is_cuda:
+        return _moment_tile_reference(tgt, src, kind, mode, kahan, eps2,
+                                      fold, fast, nb, start, tm, tn, splits)
+    from . import _build
+
+    nt, ns = tgt.shape[1], src.shape[1]
+    out = torch.empty((nt, 3) if mode == "acc" else (nt,),
+                      dtype=torch.float32, device=tgt.device)
+    part = torch.empty((2, splits, nt * (4 if mode == "acc" else 1)),
+                       dtype=torch.float32, device=tgt.device)
+    with torch.cuda.device(tgt.device):
+        rc = _kernel_lib().nbody_moment(
+            _MODES[mode], int(kahan), int(fold), int(fast), int(nb),
+            tgt.data_ptr(), nt, src.data_ptr(), ns,
+            None if start is None else start.data_ptr(), tm, tn,
+            float(eps2), splits, part.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "moment_tile_kernel")
+    LAUNCHES["fast" if fast else ("moment" if nb else "moment_2set")] += 1
+    return out
+
+
 def _rsqrt_pair(x):
     """IEEE ``rsqrtf`` and the kernels' ``rsqrt_ftz`` of float32 ``x`` on
     the card (``rsqrt_pair_kernel``), for the check that they agree on
@@ -534,20 +680,47 @@ def band_rows(rows):
 
 
 def _self_sorted(pos, gmass, soft, kind, kahan, mode, eps2, tm=None,
-                 tn=None, order=None):
+                 tn=None, order=None, mxu=None, fast=False, fold_mass=True):
     """Self-gravity via slab sort + the compact-support two-pass split
     (the TPU's ``_pallas_self_sorted``).
 
     ``order`` may be any permutation (a stale slab order included): the
     band windows are recomputed from the actual positions on every call,
     so a bad order only widens them until the single-pass fallback takes
-    over."""
+    over.
+
+    The base pass: with ``mxu`` (acc) kernel M, folded or not
+    (``fold_mass``); with ``fast`` kernel F (acc and pot), which needs the
+    moment form (``mxu=False`` raises).  ``mxu=None`` is the VPU form
+    unless ``fast`` (the TPU's default is its matrix unit: ROADMAP Queue
+    3).  The potential's ``mxu`` row sum without ``fast`` runs on the VPU
+    form: each thread of ``direct_tile_kernel``'s potential form sums its
+    own targets' rows, so the tensor cores have no reduction to take over
+    (the TPU measured its row sum bitwise equal to the VPU sum).  The
+    single-pass fallback is the VPU spline in every case, as on the TPU."""
+    if mode == "pot":
+        # the potential is folded in both forms (pallas_direct.py:663-668)
+        fold_mass = True
+    if mxu is None:
+        mxu = fast
+    if fast and not mxu:
+        raise ValueError(
+            "float32_fast builds r^2 on the moment path; tile mxu=False "
+            "conflicts with fast=True")
+    moment = fast or (mxu and mode == "acc")
     tm = TM if tm is None else tm
     tn = TN if tn is None else tn
     _check_geometry(tm, tn)
     if order is None:
         order = slab_sort_key(pos)
     ps, gs, hs = pos[order], gmass[order], soft[order]
+    if moment:
+        # centre the coordinates (pallas_direct.py:685-695): the moment
+        # finalisation subtracts x_t * sum(s) from sum(s * x_s), with an
+        # error ~ eps * |x| * sum(s), and F's expanded r^2 cancels as
+        # |x|^2 in both modes; the forces and potentials are translation
+        # invariant, so the centroid bounds |x| by the system's extent
+        ps = ps - ps.mean(0, keepdim=True)
     hinv = _soft_pre("spline", hs)
     mask_self = mode == "pot"
     first, max_width, rows = band_window(ps[:, 0], hs.max(), tm, tn)
@@ -559,10 +732,16 @@ def _self_sorted(pos, gmass, soft, kind, kahan, mode, eps2, tm=None,
     if int(max_width) <= nb:
         BRANCHES["two_pass"] += 1
         start = first.clamp(0, rows - nb).to(torch.int32).contiguous()
-        out_s = (_direct_tile(tgt, src, "newtonian", mode, kahan, eps2,
-                              mask_self, nb, start, tm, tn)
-                 + _band(tgt, src, start, mode, kahan, eps2, mask_self, tm,
-                         tn, nb))
+        if moment:
+            # no self mask: the band holds every target's own row
+            base = _moment_tile(tgt, src, "newtonian", mode, kahan, eps2,
+                                fold_mass, fast, nb=nb, start=start, tm=tm,
+                                tn=tn)
+        else:
+            base = _direct_tile(tgt, src, "newtonian", mode, kahan, eps2,
+                                mask_self, nb, start, tm, tn)
+        out_s = base + _band(tgt, src, start, mode, kahan, eps2, mask_self,
+                             tm, tn, nb)
     else:
         BRANCHES["single_pass"] += 1
         out_s = _direct_tile(tgt, src, "spline", mode, kahan, eps2,
@@ -577,20 +756,38 @@ def _self_sorted(pos, gmass, soft, kind, kahan, mode, eps2, tm=None,
 # ---------------------------------------------------------------------------
 
 def cuda_accel_2set(pos_t, soft_t, pos_s, gmass_s, soft_s, kind, kahan,
-                    eps2=PAIRWISE_EPS2):
-    """Accelerations of targets due to sources (G folded into gmass_s)."""
+                    eps2=PAIRWISE_EPS2, mxu=False):
+    """Accelerations of targets due to sources (G folded into gmass_s).
+
+    ``mxu=True`` takes kernel M's two-set form (the ring's far tiles): the
+    Newtonian law on disjoint sets, the caller centring the frame (both
+    sets shifted by the same offset) to bound the finalisation's
+    cancellation.  Another law raises there: the JAX package's moment form
+    takes any law and a self mask, but no path of the port asks for
+    either, and a self block's unsoftened close pairs would cancel as
+    |x| / |dx| in the finalisation."""
     f32 = torch.float32
-    return _direct(pos_t.to(f32), soft_t.to(f32), pos_s.to(f32),
-                   gmass_s.to(f32), soft_s.to(f32), kind, kahan, "acc",
-                   float(eps2))
+    pos_t, soft_t, pos_s = pos_t.to(f32), soft_t.to(f32), pos_s.to(f32)
+    gmass_s, soft_s = gmass_s.to(f32), soft_s.to(f32)
+    if not mxu:
+        return _direct(pos_t, soft_t, pos_s, gmass_s, soft_s, kind, kahan,
+                       "acc", float(eps2))
+    tgt = _targets(pos_t, _soft_pre(kind, soft_t))
+    src = _sources(pos_s, gmass_s, _soft_pre(kind, soft_s), BLOCK)
+    return _moment_tile(tgt, src, kind, "acc", kahan, float(eps2))
 
 
 def cuda_potential_2set(pos_t, soft_t, pos_s, gmass_s, soft_s, kind, kahan,
-                        eps2=PAIRWISE_EPS2, mask_self=False):
+                        eps2=PAIRWISE_EPS2, mask_self=False, mxu=False):
     """Potential of targets due to sources.  ``mask_self=True`` excludes
     pairs at identical index: use it when targets and sources are the same
     array (an outside subtraction of the self term would cancel
-    catastrophically for h = 0 particles)."""
+    catastrophically for h = 0 particles).
+
+    ``mxu`` is accepted as the TPU's ``pallas_potential_2set`` accepts it
+    and runs the same row sum: phi = S @ G m has no cross-lane reduction
+    here, where each thread sums its own targets' rows (``_self_sorted``)."""
+    del mxu
     f32 = torch.float32
     return _direct(pos_t.to(f32), soft_t.to(f32), pos_s.to(f32),
                    gmass_s.to(f32), soft_s.to(f32), kind, kahan, "pot",
@@ -609,11 +806,12 @@ def slab_sort_key(pos):
     return torch.argsort(pos[:, 0], stable=True)
 
 
-def _warn_tile_ignored(tm, tn, kind, n):
-    """The tm/tn overrides only shape the slab-sorted two-pass path; warn
-    rather than let a bencher believe they measured a geometry the
-    single-pass kernel never saw (the TPU's ``_warn_tile_ignored``)."""
-    given = sorted(k for k, v in (("tm", tm), ("tn", tn)) if v is not None)
+def _warn_tile_ignored(tile, kind, n):
+    """The tile overrides only shape the slab-sorted two-pass path; warn
+    rather than let a bencher believe they measured a geometry or a
+    moment form the single-pass kernel never ran (the TPU's
+    ``_warn_tile_ignored``)."""
+    given = sorted(k for k, v in tile.items() if v is not None)
     if given:
         from ..species import PerformanceWarning
 
@@ -623,17 +821,29 @@ def _warn_tile_ignored(tm, tn, kind, n):
             f"kernel={kind!r}, N={n:,}", PerformanceWarning, stacklevel=4)
 
 
+_TILE_KEYS = ("tm", "tn", "max_sub", "mxu", "fold_mass")
+
+
 def _self_gravity(mode, pos, mass, soft, G, kind, kahan, eps2, spatial_sort,
-                  order, tm, tn):
+                  order, tm, tn, fast, tile):
     validate_kernel(kind)
+    tile = dict(tile or {})
+    bad = set(tile) - set(_TILE_KEYS)
+    if bad:
+        raise ValueError(f"unknown tile keys: {sorted(bad)}")
+    for key, val in (("tm", tm), ("tn", tn)):
+        if val is not None:
+            tile[key] = val
     f32 = torch.float32
     gmass = (mass * G).to(f32)
     soft = soft.to(f32)
     pos = pos.to(f32)
     if uses_spatial_sort(kind, pos.shape[0], spatial_sort):
+        # max_sub (the TPU's VMEM superblock) shapes nothing here
+        tile.pop("max_sub", None)
         return _self_sorted(pos, gmass, soft, kind, kahan, mode, float(eps2),
-                            tm=tm, tn=tn, order=order)
-    _warn_tile_ignored(tm, tn, kind, pos.shape[0])
+                            order=order, fast=fast, **tile)
+    _warn_tile_ignored(tile, kind, pos.shape[0])
     if mode == "acc":
         return cuda_accel_2set(pos, soft, pos, gmass, soft, kind, kahan,
                                eps2)
@@ -642,19 +852,27 @@ def _self_gravity(mode, pos, mass, soft, G, kind, kahan, eps2, spatial_sort,
 
 
 def cuda_accel(pos, mass, soft, G, kind, kahan, eps2=PAIRWISE_EPS2,
-               spatial_sort=None, order=None, tm=None, tn=None):
+               spatial_sort=None, order=None, tm=None, tn=None, fast=False,
+               tile=None):
     """(N, 3) float32 self-gravity accelerations.
 
     ``spatial_sort`` (default: on for the spline at N >= 16384) selects
     the slab-sorted two-pass path; ``order`` optionally supplies a
     precomputed (possibly stale) slab order; ``tm``/``tn`` override its
-    band geometry."""
+    band geometry.  ``fast`` (the ``float32_fast`` tier) takes kernel F
+    as the base pass, only meaningful on the sorted path.  ``tile``: a
+    dict of ``tm``, ``tn``, ``max_sub`` (no meaning here), ``mxu``
+    (kernel M as the base pass) and ``fold_mass`` (False keeps G m in the
+    pair factor, the ``target_drift`` tier), as the TPU's
+    ``pallas_accel``; off the sorted path a given key warns."""
     return _self_gravity("acc", pos, mass, soft, G, kind, kahan, eps2,
-                         spatial_sort, order, tm, tn)
+                         spatial_sort, order, tm, tn, fast, tile)
 
 
 def cuda_potential(pos, mass, soft, G, kind, kahan, eps2=PAIRWISE_EPS2,
-                   spatial_sort=None, order=None, tm=None, tn=None):
-    """(N,) float32 self-gravity potential (self pair masked in-kernel)."""
+                   spatial_sort=None, order=None, tm=None, tn=None,
+                   fast=False, tile=None):
+    """(N,) float32 self-gravity potential (self pair masked in-kernel).
+    ``fast`` and ``tile``: see :func:`cuda_accel`."""
     return _self_gravity("pot", pos, mass, soft, G, kind, kahan, eps2,
-                         spatial_sort, order, tm, tn)
+                         spatial_sort, order, tm, tn, fast, tile)

@@ -37,12 +37,11 @@ from . import cuda_direct, pairwise
 __all__ = ["DirectGravity"]
 
 _TILE_KEYS = {"tm", "tn", "max_sub", "mxu", "fold_mass"}
-# tile_config keys of the TPU's sorted Pallas path with no CUDA meaning
-_TPU_TILE_KEYS = {
-    "max_sub": "sources per TPU grid step (VMEM superblocks)",
-    "mxu": "the TPU's matrix-unit moment form",
-    "fold_mass": "the mass fold of the matrix-unit moment form",
-}
+
+# target_drift= below this |dE/E| class takes the unfolded moment form
+# (the JAX package's dispatch.py:50-53): on the TPU the folded moments
+# drifted ~2.1e-7 over 1000 steps at N = 1M against ~1e-8 unfolded
+_FOLD_MASS_DRIFT = 1e-7
 
 _NOT_PORTED = {
     "xla": "the TPU-only XLA two-pass backend is not ported (ROADMAP.md, "
@@ -57,9 +56,16 @@ def _default_impl(device: torch.device) -> str:
 class DirectGravity:
     """O(N^2) direct-summation gravity bound to a particle population.
 
-    ``target_drift`` is validated and kept but changes nothing: on the
-    TPU it only unfolds the mass from the matrix-unit moment form, which
-    the port does not have.
+    ``precision='float32_fast'`` takes kernel F (r^2 expanded, its cross
+    term on the tensor cores) as the base pass of the slab-sorted spline
+    path (``impl='cuda'``, N >= 16384); elsewhere it runs as plain
+    'float32' and warns.  ``target_drift`` below 1e-7 (``impl='cuda'``,
+    not fast) takes the unfolded moment form: ``tile_config`` gains
+    ``fold_mass=False`` and ``mxu=True`` unless the caller set them (the
+    TPU sets only ``fold_mass``, its moment form being on by default).  On
+    the H100 that form costs about 1.7 times the default's step at N = 1M
+    and has shown no drift gain over it (PERF.md);
+    ``tile_config={'mxu': False}`` keeps the VPU form.
 
     ``device`` is the card by default; without one it raises, naming
     ``device='cpu'``, the CPU option.  ``devices`` lists the ring's shards
@@ -69,12 +75,15 @@ class DirectGravity:
     ``sharded_opts`` forwards ``ShardedDirect`` keywords
     (``use_kernels``, ``mxu``) and needs the sharded impl.
 
-    ``tile_config`` overrides the band geometry of the slab-sorted path:
-    ``tm`` (targets per band tile) and ``tn`` (sources per band row),
-    positive multiples of 64.  The TPU's other keys (``max_sub``,
-    ``mxu``, ``fold_mass``) are accepted and ignored with a
-    ``PerformanceWarning``; off the sorted path the overrides are ignored
-    with a warning at the force call, as on the TPU."""
+    ``tile_config`` overrides the slab-sorted path's base pass: ``tm``
+    (targets per band tile) and ``tn`` (sources per band row), positive
+    multiples of 64; ``mxu`` (True: kernel M, the moment form on the
+    tensor cores; the default None is the VPU form here, where the TPU
+    defaults to its matrix unit) and ``fold_mass`` (False keeps G m in
+    the pair factor).  ``max_sub`` (the TPU's VMEM superblocks) is
+    accepted and ignored with a ``PerformanceWarning``.  Off the sorted
+    path the overrides are ignored with a warning at the force call, as
+    on the TPU."""
 
     def __init__(
         self,
@@ -97,6 +106,7 @@ class DirectGravity:
         self.kernel = kernel
         self.precision = precision
         self.kahan = precision == "float32_kahan"
+        self.fast = precision == "float32_fast"
         self.dtype = torch.float64 if precision == "float64" else torch.float32
         self.G = float(G)
         self.eps2 = float(eps2)
@@ -151,46 +161,68 @@ class DirectGravity:
         self.softening = softening
         self.block_size = block_size or pairwise._choose_block(n)
 
+        if tile_config is not None:
+            bad = set(tile_config) - _TILE_KEYS
+            if bad:
+                raise ValueError(f"unknown tile_config keys: {sorted(bad)}")
         if target_drift is not None:
             target_drift = float(target_drift)
             if not target_drift > 0.0:
                 raise ValueError("target_drift must be a positive |dE/E| "
                                  f"bound (got {target_drift!r})")
+            if (target_drift < _FOLD_MASS_DRIFT and impl == "cuda"
+                    and not self.fast):
+                tile_config = dict(tile_config or {})
+                # an explicit user choice wins over the automatic one
+                tile_config.setdefault("mxu", True)
+                tile_config.setdefault("fold_mass", False)
         self.target_drift = target_drift
 
         self.tile_config = tile_config
         self._tile = {}
         if tile_config is not None:
-            bad = set(tile_config) - _TILE_KEYS
-            if bad:
-                raise ValueError(f"unknown tile_config keys: {sorted(bad)}")
             self._tile = {k: int(tile_config[k]) for k in ("tm", "tn")
                           if k in tile_config}
+            self._tile.update({k: None if tile_config[k] is None
+                               else bool(tile_config[k])
+                               for k in ("mxu", "fold_mass")
+                               if k in tile_config})
             cuda_direct._check_geometry(self._tile.get("tm", cuda_direct.TM),
                                         self._tile.get("tn", cuda_direct.TN))
-            ignored = sorted(set(tile_config) & set(_TPU_TILE_KEYS))
-            if ignored:
+            if "max_sub" in tile_config:
                 from ..species import PerformanceWarning
 
-                what = "; ".join(f"{k}: {_TPU_TILE_KEYS[k]}" for k in ignored)
                 warnings.warn(
-                    f"tile_config keys {ignored} have no meaning for the "
-                    f"CUDA kernels and are ignored ({what})",
-                    PerformanceWarning, stacklevel=2)
+                    "tile_config key ['max_sub'] has no meaning for the "
+                    "CUDA kernels and is ignored (max_sub: sources per TPU "
+                    "grid step, VMEM superblocks)", PerformanceWarning,
+                    stacklevel=2)
 
         if self.impl == "sharded":
             from ..parallel.sharded import ShardedDirect
 
             self._sharded = ShardedDirect(self, **(sharded_opts or {}))
 
-        if precision == "float32_fast":
-            from ..species import PerformanceWarning
+        if self.fast:
+            # the fast tier exists only on the slab-sorted spline path;
+            # everywhere else it is plain float32: say so (the JAX
+            # package's dispatch.py:233-258)
+            if (self.impl != "cuda"
+                    or not cuda_direct.uses_spatial_sort(kernel, n)):
+                from ..species import PerformanceWarning
 
-            warnings.warn(
-                "precision='float32_fast' has no fast tier in this package "
-                "(the TPU's expanded-r^2 matrix-unit form is not ported); "
-                "it runs as plain 'float32'", PerformanceWarning,
-                stacklevel=2)
+                why = (f"impl={self.impl!r}" if self.impl != "cuda"
+                       else f"kernel={kernel!r}, N={n:,}")
+                warnings.warn(
+                    "precision='float32_fast' has its tier (kernel F) only "
+                    "on the slab-sorted spline path (impl='cuda', "
+                    f"kernel='spline', N >= {cuda_direct.SORT_MIN_N}); with "
+                    f"{why} it runs as plain 'float32'", PerformanceWarning,
+                    stacklevel=2)
+            if tile_config is not None and tile_config.get("mxu") is False:
+                raise ValueError(
+                    "precision='float32_fast' builds r^2 on the moment "
+                    "path; tile_config {'mxu': False} conflicts with it")
 
     def shard_state(self, x):
         """Ghost-pad an (N, ...) state tensor for the sharded backend (see
@@ -254,7 +286,8 @@ class DirectGravity:
         if self.impl == "cuda":
             return cuda_direct.cuda_accel(
                 pos, self.mass, self.softening, self.G, self.kernel,
-                self.kahan, self.eps2, order=order, **self._tile)
+                self.kahan, self.eps2, order=order, fast=self.fast,
+                tile=self._tile)
         return pairwise._pairwise_blocked(
             pos, self.mass, self.softening, self.G, self.kernel, self.kahan,
             self.block_size, "acc", self.eps2)
@@ -268,7 +301,8 @@ class DirectGravity:
         if self.impl == "cuda":
             return cuda_direct.cuda_potential(
                 pos, self.mass, self.softening, self.G, self.kernel,
-                self.kahan, self.eps2, order=order, **self._tile)
+                self.kahan, self.eps2, order=order, fast=self.fast,
+                tile=self._tile)
         return pairwise._pairwise_blocked(
             pos, self.mass, self.softening, self.G, self.kernel, self.kahan,
             self.block_size, "pot", self.eps2)

@@ -215,7 +215,8 @@ class SCFGravity:
     nmax, lmax : radial / angular truncation (the accuracy dials).
     mmax : azimuthal truncation (default lmax).
     a : basis scale radius.  Default: the median particle radius about
-        ``center`` in ``phase_space``.
+        ``center`` in ``phase_space`` (about the mass-weighted centroid
+        for ``center='com'``).
     symmetry : 'none' | 'spherical' | 'axisymmetric' | 'triaxial' |
         'bisymmetric' (``potentials.fit._symmetry_labels``).
     center : static (3,) expansion centre, 'com' for the instantaneous
@@ -270,7 +271,16 @@ class SCFGravity:
                 raise ValueError(
                     "pass a= (basis scale radius) or phase_space= so "
                     "SCFGravity can pick it from the median radius")
-            p = np.asarray(phase_space, float)[:, :3] - center_np
+            p = np.asarray(phase_space, float)[:, :3]
+            if self._follow_com:
+                # about the mass-weighted centroid the expansion follows,
+                # not the origin: for an off-centre group the origin's
+                # median is its orbital distance (a port deviation; the
+                # JAX package's scf.py:306 measures about the origin)
+                w = self.mass.detach().cpu().double().numpy()
+                p = p - (w[:, None] * p).sum(0) / w.sum()
+            else:
+                p = p - center_np
             a = float(np.median(np.linalg.norm(p, axis=1)))
             if not np.isfinite(a) or a <= 0:
                 raise ValueError(

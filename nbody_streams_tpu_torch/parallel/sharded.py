@@ -23,8 +23,13 @@ Tiles: in float32 with ``use_kernels`` the hand-written two-set kernel
 spline, a block whose x-interval lies farther than max(h) from the local
 targets' takes the Newtonian law (every pair there has r > h), and the
 potential masks the self pair in-kernel on step r = 0, where the local row
-indices align.  Otherwise (float64, or ``use_kernels=False``) the blocked
-plain tile with global indices (``_tile_blocked``).
+indices align.  With ``mxu=True`` the far blocks of a spline ring take
+kernel M's two-set moment form (``ops.cuda_direct._moment_tile``) on a
+frame centred on the real particles' centroid; the near blocks keep the
+s*dx form, whose close pairs are exact, and the potential's tiles the row
+sum they have (the JAX package's ``mxu`` there is the same sum).
+Otherwise (float64, or ``use_kernels=False``) the blocked plain tile with
+global indices (``_tile_blocked``).
 
 On the card every shard has a compute stream, a receive stream and, for a
 copy between two distinct cards, a send stream; events order them and
@@ -121,15 +126,13 @@ class ShardedDirect:
     the plain tile otherwise; float64 always takes the plain tile.  On CPU
     shards ``use_kernels=True`` runs the kernels' plain versions (the
     wrappers do so for CPU tensors): the kernel route's ring on the CPU.
-    ``mxu=True`` (the TPU's matrix-unit moment form) is not ported.  The
+    ``mxu=True`` (the TPU's matrix-unit moment form) takes kernel M for the
+    far blocks of a spline ring on the kernel route; None (the default
+    here, where the TPU defaults to True) and False keep the VPU form.  The
     shards are the solver's ``devices``."""
 
     def __init__(self, solver, use_kernels: bool | None = None,
                  mxu: bool | None = None):
-        if mxu:
-            raise NotImplementedError(
-                "mxu=True: the matrix-unit moment form is not ported; it is "
-                "gated in ROADMAP.md Queue 2b item 8")
         self.solver = solver
         self.mesh = make_particle_mesh(solver.devices)
         self.n_dev = d = len(self.mesh)
@@ -156,6 +159,7 @@ class ShardedDirect:
             use_kernels = self._card
         self.use_kernels = bool(use_kernels) \
             and solver.dtype == torch.float32
+        self.mxu = bool(mxu) and self.use_kernels
         if self.use_kernels:
             # per-shard softening operand of the kernels (static)
             self._pre = [cuda_direct._soft_pre(solver.kernel, s)
@@ -238,6 +242,10 @@ class ShardedDirect:
                                                          % self.n_dev]:
                 law = "newtonian"
             TILES[law] += 1
+            if law != kind and self.mxu:
+                # a far block: the moment form, on the centred frame
+                return cuda_direct._moment_tile(tgt, block, law, mode,
+                                                kahan, eps2)
             return cuda_direct._direct_tile(
                 tgt, block, law, mode, kahan, eps2,
                 mask_self=(mode == "pot" and r == 0))
@@ -314,6 +322,12 @@ class ShardedDirect:
         # a ghost-padded state (shard_state) arrives at npad rows and keeps
         # that length on output
         padded_in = pos.shape[0] == self.npad and self.npad != n
+        if mode == "acc" and self.mxu and self.solver.kernel == "spline":
+            # the moment form's frame (the JAX package's sharded.py:250-256):
+            # the forces are translation invariant, and the shift bounds
+            # the finalisation's cancellation by the system's extent; the
+            # centroid of the n real rows, not of the zero ghost rows
+            pos = pos - pos[:n].mean(0, keepdim=True)
         posp = pos if padded_in else F.pad(pos, (0, 0, 0, self.npad - n))
         out = self._ring(mode, posp)
         return out if padded_in else out[:n]

@@ -259,7 +259,9 @@ def run_nbody(
 
     * ``precision``: 'float32' | 'float32_kahan' (compensated force
       accumulation *and* compensated state updates) | 'float64' (the
-      oracle impl) | 'float32_fast' (runs as 'float32', with a warning).
+      oracle impl) | 'float32_fast' (kernel F's expanded r^2 on the
+      slab-sorted spline path, impl 'cuda', N >= 16384; plain 'float32',
+      with a warning, elsewhere).
     * ``impl``: 'auto' | 'cuda' (hand-written kernels) | 'torch' (oracle).
     * ``architecture``: 'gpu' or 'auto' (the CUDA device; each raises
       without one) | 'cpu'.
@@ -510,15 +512,19 @@ def run_nbody(
         events = {e for e in events if e < _stop_step} | {_stop_step}
     boundaries = sorted(e for e in events if e > start_step)
 
-    last_xv = xv          # emergency payload: last *completed* state
-    wd_step = start_step
-    wd_t = time_start + start_step * dt
+    # emergency payload: the last *completed* state, with its Kahan
+    # compensations and extra (friction) state, and its step and time, set
+    # in one assignment so that the watchdog's thread reads one state
+    last = (xv, _restart_state(state, n) if step_timeout_s else None,
+            start_step, time_start + start_step * dt)
 
     def emergency_restart():
-        # the phase space alone: a resume from it starts the compensations
-        # and the extra force afresh, as the JAX package's resumes do
+        # as a regular restart: a resume from it continues the
+        # compensations and the extra force where the state left them
+        # (the JAX package's emergency restart holds the phase space alone)
+        last_xv, last_state, wd_step, wd_t = last
         _save_restart(last_xv, wd_t, wd_step, output_path, snapshot_counter,
-                      **restart_kwargs)
+                      state=last_state, **restart_kwargs)
         print(f"WATCHDOG: sub-chunk exceeded the {step_timeout_s}s/step "
               f"deadline after step {wd_step}; emergency restart (all "
               f"completed work) saved to {output_path}/restart.npz",
@@ -555,9 +561,9 @@ def run_nbody(
                 done += s
                 if step_timeout_s:
                     with boundary_guard():
-                        last_xv = fetch_xv(state)
-                    wd_step = current + done
-                    wd_t = time_start + wd_step * dt
+                        last = (fetch_xv(state), _restart_state(state, n),
+                                current + done,
+                                time_start + (current + done) * dt)
             current = boundary
             t_now = time_start + current * dt
 
@@ -569,8 +575,7 @@ def run_nbody(
             due_check = nan_check and not save_snapshots
             if due_snap or due_restart or debug_energy or due_check:
                 # the watchdog path already fetched this exact state
-                xv_host = last_xv if step_timeout_s else fetch_xv(state)
-                last_xv = xv_host
+                xv_host = last[0] if step_timeout_s else fetch_xv(state)
                 if nan_check and not np.isfinite(xv_host).all():
                     # the diagnostic payload goes to a SEPARATE file: the last
                     # good restart.npz must survive the abort

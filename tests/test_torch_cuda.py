@@ -835,3 +835,152 @@ def test_gate1m_on_the_card(dev, tmp_path):
     assert rec["device"] == torch.cuda.get_device_name(dev)
     assert rec["peak_hbm_gb"] > 0
     assert cd.LAUNCHES["base"] > before["base"]
+
+
+# ---------------------------------------------------------------------------
+# kernels M and F (csrc/moment.cu): the tensor-core forms
+# ---------------------------------------------------------------------------
+
+def _moment_operands(dev):
+    """The bench case's sorted operands on the frame the moment forms take
+    (centred on the centroid, as cuda_direct._self_sorted centres)."""
+    tgt, src, start, nb = _bench_operands(dev)
+    n = tgt.shape[1]
+    mean = tgt[:3].mean(1, keepdim=True)
+    tgt = tgt.clone()
+    src = src.clone()
+    tgt[:3] -= mean
+    src[:3, :n] -= mean
+    return tgt, src, start, nb
+
+
+MOMENT_FORMS = {"fold": ("acc", True, False), "unfold": ("acc", False, False),
+                "fast": ("acc", True, True), "fast_pot": ("pot", True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(MOMENT_FORMS))
+def test_moment_base_pass_matches_plain(dev, form):
+    """Kernel M (folded, unfolded) and F (acc, pot) as the base pass at the
+    bench case, at the wrapper's S and at S = 1, against their plain
+    versions: M within chip_smoke.MOMENT_TOL, F within
+    chip_smoke.FAST_TOL (its cross term's order of products); the same
+    bits on a repeated launch; one launch counted under its form."""
+    mode, fold, fast = MOMENT_FORMS[form]
+    tgt, src, start, nb = _moment_operands(dev)
+    tol = chip_smoke.FAST_TOL[mode] if fast else chip_smoke.MOMENT_TOL
+    splits = cd.split_count("direct", 65536, src.shape[1], _sms(dev), nb,
+                            cd.TN)
+    for s in (splits, 1):
+        before = dict(cd.LAUNCHES)
+        got = cd._moment_tile(tgt, src, "newtonian", mode, True, 1e-15,
+                              fold, fast, nb=nb, start=start, splits=s)
+        again = cd._moment_tile(tgt, src, "newtonian", mode, True, 1e-15,
+                                fold, fast, nb=nb, start=start, splits=s)
+        torch.cuda.synchronize()
+        key = "fast" if fast else "moment"
+        assert cd.LAUNCHES == dict(before, **{key: before[key] + 2})
+        want = cd._moment_tile_reference(tgt, src, "newtonian", mode, True,
+                                         1e-15, fold, fast, nb=nb,
+                                         start=start, splits=s)
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) < tol, (s, _rel(got, want))
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gap", [0.5, None], ids=["near", "far"])
+def test_moment_two_set_matches_plain(dev, gap):
+    """Kernel M's two-set form (the ring's far tiles: the Newtonian law on
+    disjoint blocks) at a ragged shape against its plain version at the
+    same S: chip_smoke.MOMENT_TOL with Kahan and 1e-5 without.  "near" is
+    the closest block the ring's far test lets through: its x-interval
+    ``gap`` = 0.5 beyond the targets', more than the widest softening
+    (0.3); "far" is shifted by 6 on every axis.  (Blocks that interleave,
+    which the far test keeps on the VPU form, cancel as |x| / |dx| in the
+    finalisation: 1.4e-5 kernel vs plain at a shift of 2, PERF.md.)"""
+    rng = np.random.default_rng(3)
+    nt = 3000
+    pos_t = torch.tensor(rng.normal(0, 1, (nt, 3)), dtype=torch.float32,
+                         device=dev)
+    h_t = torch.tensor(rng.uniform(0.05, 0.3, nt), dtype=torch.float32,
+                       device=dev)
+    gm_t = torch.tensor(rng.uniform(0.5, 2.0, nt) * 0.43,
+                        dtype=torch.float32, device=dev)
+    if gap is None:
+        pos_s = pos_t[:2000] + 6.0
+    else:
+        pos_s = pos_t[:2000].clone()
+        pos_s[:, 0] += pos_t[:, 0].max() - pos_s[:, 0].min() + gap
+    pre = cd._soft_pre("newtonian", h_t)
+    tgt = cd._targets(pos_t, pre)
+    src = cd._sources(pos_s, gm_t[:2000], pre[:2000], cd.BLOCK)
+    splits = cd.split_count("direct", nt, src.shape[1], _sms(dev))
+    for kahan, tol in ((True, chip_smoke.MOMENT_TOL), (False, 1e-5)):
+        before = cd.LAUNCHES["moment_2set"]
+        got = cd._moment_tile(tgt, src, "newtonian", "acc", kahan, 1e-15)
+        torch.cuda.synchronize()
+        assert cd.LAUNCHES["moment_2set"] == before + 1
+        want = cd._moment_tile_reference(tgt, src, "newtonian", "acc",
+                                         kahan, 1e-15, splits=splits)
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) < tol, (kahan, _rel(got, want))
+
+
+@pytest.mark.cuda
+def test_moment_forms_match_fp64(dev):
+    """The sorted path with kernel M (folded and not) and the VPU form
+    against the fp64 oracle at N = 16,384: 3e-6 (the JAX package's
+    tolerance); kernel F within its tier's bound (1e-4)."""
+    xv, m = make_plummer_sphere(16384, M_total=1e9, a=1.0, seed=4)
+    p = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+    mt = torch.tensor(m, dtype=torch.float32, device=dev)
+    ht = torch.full((16384,), H, dtype=torch.float32, device=dev)
+    want = compute_forces_direct(p.double(), mt.double(), ht.double(), G=G,
+                                 precision="float64")
+    for kw, tol in ((dict(tile={"mxu": True}), 3e-6),
+                    (dict(tile={"mxu": True, "fold_mass": False}), 3e-6),
+                    (dict(fast=True), 1e-4)):
+        got = cd.cuda_accel(p, mt, ht, G, "spline", True, **kw)
+        assert _rel(got, want) < tol, (kw, _rel(got, want))
+
+
+@pytest.mark.cuda
+def test_solver_options_take_the_moment_kernels(dev):
+    """DirectGravity on the card: tile_config {'mxu': True} and
+    target_drift=1e-8 launch kernel M, float32_fast kernel F (acc and
+    pot), the default neither; the band pass runs in every case."""
+    xv, m = make_plummer_sphere(65536, M_total=1e9, a=1.0, seed=2)
+    pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+    cases = {"default": ({}, {"base": 2}),
+             "mxu": (dict(tile_config={"mxu": True}),
+                     {"moment": 1, "base": 1}),
+             "drift": (dict(target_drift=1e-8), {"moment": 1, "base": 1}),
+             "fast": (dict(precision="float32_fast"), {"fast": 2})}
+    for name, (kw, want) in cases.items():
+        solver = DirectGravity(m, H, G=G, impl="cuda", device=dev, **kw)
+        before = dict(cd.LAUNCHES)
+        solver.accel(pos)
+        solver.potential(pos)
+        torch.cuda.synchronize()
+        got = {k: cd.LAUNCHES[k] - before[k] for k in cd.LAUNCHES}
+        assert got == {k: want.get(k, 0) + (2 if k == "band" else 0)
+                       for k in cd.LAUNCHES}, (name, got)
+
+
+@pytest.mark.cuda
+def test_ring_mxu_on_virtual_shards_matches_one_card(dev):
+    """ShardedDirect(mxu=True) over ['cuda:0'] * 4 on the slab-sorted case
+    at (120, -80, 40): its far tiles through kernel M's two-set form,
+    within 2e-6 * max of the one-card sorted path."""
+    xv, m, h = _ring_case(65_536)
+    xv = xv + np.array([120.0, -80.0, 40.0, 0.0, 0.0, 0.0])
+    ring = DirectGravity(m, h, G=G, impl="sharded", devices=["cuda:0"] * 4,
+                         sharded_opts={"mxu": True})
+    one = DirectGravity(m, h, G=G, impl="cuda", device=dev)
+    pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
+    before = cd.LAUNCHES["moment_2set"]
+    got = ring.accel(pos)
+    torch.cuda.synchronize()
+    assert cd.LAUNCHES["moment_2set"] - before >= 4
+    assert _rel(got, one.accel(pos)) < 2e-6

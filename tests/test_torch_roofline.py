@@ -13,6 +13,8 @@ relative for the chains and the tile (fp32 against numpy fp32 or the
 fp64 oracle, after up to a few hundred roundings); 1e-6 * max between the
 sorted path and the Pallas kernels (the TOL of test_torch_direct.py).
 """
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -253,9 +255,19 @@ def test_tile_config_reaches_the_sorted_path(sorted_case, monkeypatch):
     ({"tn": 128, "fold_mass": False}, "fold_mass"),
 ])
 def test_tile_config_tpu_keys_warn(tile, match):
-    with pytest.warns(PerformanceWarning, match=match):
-        DirectGravity(np.full(64, 1.0), 0.05, impl="cuda", tile_config=tile,
-                      device="cpu")
+    """max_sub (the TPU's VMEM superblocks) has no CUDA meaning and warns;
+    mxu and fold_mass choose kernel M's form and are kept, silently."""
+    if match == "max_sub":
+        with pytest.warns(PerformanceWarning, match=match):
+            solver = DirectGravity(np.full(64, 1.0), 0.05, impl="cuda",
+                                   tile_config=tile, device="cpu")
+    else:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            solver = DirectGravity(np.full(64, 1.0), 0.05, impl="cuda",
+                                   tile_config=tile, device="cpu")
+    assert match not in solver._tile or solver._tile[match] == tile[match]
+    assert ("max_sub" in solver._tile) is False
 
 
 def test_tile_config_is_checked():

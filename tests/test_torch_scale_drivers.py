@@ -219,3 +219,17 @@ def test_stop_step_outside_the_run_raises(stop, tmp_path):
                        architecture="cpu", save_snapshots=False,
                        verbose=False, output_dir=str(tmp_path),
                        _stop_step=stop)
+
+
+def test_northstar_gate1m_options(monkeypatch):
+    """The gate1m command line passes its depth, target drift and output
+    directory to run_gate1m; the bare command keeps the 1,000-step gate."""
+    seen = []
+    monkeypatch.setattr(ns, "run_gate1m", lambda **kw: seen.append(kw))
+    assert ns.main(["gate1m", "--steps", "200", "--target-drift", "1e-8",
+                    "--out", "d"]) == 0
+    assert ns.main(["gate1m"]) == 0
+    assert seen == [dict(steps=200, out="d", target_drift=1e-8),
+                    dict(steps=1000, out=ns.OUT_1M, target_drift=None)]
+    with pytest.raises(SystemExit):
+        ns.main(["gate3m"])

@@ -571,3 +571,27 @@ def test_scf_benchmark_needs_the_card():
     for fn in (bench.run_speed, bench.run_ladder, bench.run_drift):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()
+
+
+def test_default_scale_follows_the_com():
+    """center='com' with no a=: the scale is the median radius about the
+    group's mass-weighted centroid, so an off-centre group at (120, -80,
+    40) gets its centred twin's scale (within 10%), not its orbital
+    distance (the JAX package measures about the origin)."""
+    xv, m = tst.make_plummer_sphere(4096, M_total=1e8, a=0.3, seed=12)
+    centred = ts.SCFGravity(m, nmax=2, lmax=0, G=G, center="com",
+                            phase_space=xv, **CPU)
+    shifted = xv.copy()
+    shifted[:, :3] += (120.0, -80.0, 40.0)
+    off = ts.SCFGravity(m, nmax=2, lmax=0, G=G, center="com",
+                        phase_space=shifted, **CPU)
+    assert abs(off.a / centred.a - 1.0) < 0.1, (off.a, centred.a)
+    assert centred.a < 1.0
+    # a static centre and the origin keep their own medians
+    origin = ts.SCFGravity(m, nmax=2, lmax=0, G=G, phase_space=shifted,
+                           **CPU)
+    assert origin.a > 100.0
+    static = ts.SCFGravity(m, nmax=2, lmax=0, G=G,
+                           center=(120.0, -80.0, 40.0),
+                           phase_space=shifted, **CPU)
+    np.testing.assert_allclose(static.a, off.a, rtol=1e-6)

@@ -7,8 +7,8 @@ eight virtual CPU shards (``devices=['cpu'] * 8``), on the same numpy
 inputs.  Tolerances (max |port - JAX| / max |JAX|): 2e-6 in float32 (the
 JAX package's own ring-vs-single tolerance), 1e-13 in float64; the
 kernel route's ring (the kernels' plain versions on CPU tensors) against
-the JAX Pallas ring in interpret mode (``mxu=False``: the port has no
-moment form), 2e-6.  Runs in float64 as tests/test_sharded.py: rtol 1e-10,
+the JAX Pallas ring in interpret mode (``mxu=False``; the moment form,
+``mxu=True``, is held against it in tests/test_torch_moment.py), 2e-6.  Runs in float64 as tests/test_sharded.py: rtol 1e-10,
 atol 1e-12.
 """
 import dataclasses
@@ -250,9 +250,21 @@ def test_sharded_opts_pass_through_and_raise(slab):
 
 
 def test_mxu_raises(slab):
-    _, mass, soft = slab["shuffled"]
-    with pytest.raises(NotImplementedError, match="Queue 2b item 8"):
-        _port(mass, soft, mxu=True)
+    """mxu=True no longer raises: on the kernel route the far blocks of the
+    sorted slab take kernel M's two-set form (tests/test_torch_moment.py
+    holds it against the JAX ring); without the kernels, or by default,
+    it is off."""
+    pos, mass, soft = slab["sorted"]
+    port = _port(mass, soft, use_kernels=True, mxu=True)
+    assert port._sharded.mxu
+    assert not _port(mass, soft, use_kernels=True)._sharded.mxu
+    assert not _port(mass, soft, mxu=True)._sharded.mxu
+    before = dict(tsh.TILES)
+    got = _eval(port, "accel", pos)
+    assert tsh.TILES["newtonian"] - before["newtonian"] >= 64 // 2
+    want = _eval(_port(mass, soft, use_kernels=True), "accel", pos)
+    assert not np.array_equal(got, want)
+    assert _rel(got, want) < 3e-6
 
 
 def test_slab_sort_for_sharding_preserves_physics():

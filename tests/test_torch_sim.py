@@ -279,3 +279,46 @@ def test_watchdog_hang_saves_completed_work(tmp_path, monkeypatch):
 def test_snapshot_schedule_collapses_duplicates():
     assert list(trun._snapshot_schedule(3, 10)) == [0, 1, 2, 3]
     assert list(trun._snapshot_schedule(10, 1)) == [10]
+
+
+def test_emergency_restart_resumes_as_the_regular_one(tmp_path, monkeypatch):
+    """The watchdog's emergency restart holds the last completed state's
+    Kahan compensations beside its phase space, as a regular restart does:
+    a resume from it equals, bit for bit, a resume from the regular
+    restart at the same step (the JAX package's emergency restart holds
+    the phase space alone, so its resume restarts the compensations)."""
+    monkeypatch.setattr(trun, "_CHUNK_GRACE_S", 0.2)
+    xv, m = tst.make_plummer_sphere(32, M_total=1e4, a=0.01, seed=1)
+    calls = {"n": 0}
+
+    def hanging_force(pos, vel, mass, t):
+        calls["n"] += 1
+        if calls["n"] > 60:          # hang inside the second sub-chunk
+            time.sleep(2.0)
+        return np.zeros_like(pos)
+
+    def zero_force(pos, vel, mass, t):
+        return np.zeros_like(pos)
+
+    kw = dict(softening=0.003, architecture="cpu", verbose=False,
+              save_snapshots=False, precision="float32_kahan")
+    hung, regular = tmp_path / "hung", tmp_path / "regular"
+    with pytest.raises(KeyboardInterrupt):
+        tst.run_nbody(xv, m, 0.0, 120e-4, 1e-4, output_dir=str(hung),
+                      step_timeout_s=0.01, force_extra=hanging_force, **kw)
+    tst.run_nbody(xv, m, 0.0, 120e-4, 1e-4, output_dir=str(regular),
+                  force_extra=zero_force, _stop_step=50, **kw)
+    saved = {}
+    for name, d in (("hung", hung), ("regular", regular)):
+        with np.load(d / "restart.npz") as f:
+            saved[name] = {k: f[k] for k in f.files}
+    assert int(saved["hung"]["step"]) == int(saved["regular"]["step"]) == 50
+    for key in ("phase_space", "state_pos_c", "state_vel_c"):
+        np.testing.assert_array_equal(saved["hung"][key],
+                                      saved["regular"][key])
+    assert np.abs(saved["hung"]["state_pos_c"]).max() > 0
+    final = {name: tst.run_nbody(xv, m, 0.0, 80e-4, 1e-4,
+                                 output_dir=str(d), continue_run=True,
+                                 force_extra=zero_force, **kw)
+             for name, d in (("hung", hung), ("regular", regular))}
+    np.testing.assert_array_equal(final["hung"], final["regular"])

@@ -283,3 +283,25 @@ def test_plot_stream_evolution_matches_jax(cloud):
     with pytest.raises(ValueError, match="off-by-one"):
         TPL.plot_stream_evolution(traj, np.arange(5))
     plt.close("all")
+
+
+def test_splat_conserves_mass_in_a_crowded_pixel():
+    """Many particles in one pixel (200,000 within a tenth of a pixel,
+    stencils inside the frame): the image holds their mass to 1e-6.  The
+    float32 grid the JAX package accumulates in does not (each deposit
+    loses its low bits against the pixel's running sum), which is why the
+    port's grid is float64."""
+    rng = np.random.default_rng(8)
+    n = 200_000
+    pos = rng.normal(0.0, 0.01, (n, 2))
+    mass = rng.uniform(0.5, 1.5, n)
+    h = np.full(n, 1e-3)
+    extent, npix = (-1.0, 1.0, -1.0, 1.0), 16
+    area = (2.0 / npix) ** 2
+    img, _ = T.render_surface_density(
+        np.c_[pos, np.zeros(n)], mass, extent=extent, npix=npix,
+        smoothing=h, arch="cpu")
+    assert abs(img.sum() * area / mass.sum() - 1.0) < 1e-6
+    args = chip_smoke.splat_args(pos, mass, h, extent, npix, "cpu")
+    f32 = T._splat(*args, acc_dtype=torch.float32).double().sum().item()
+    assert abs(f32 / mass.sum() - 1.0) > 1e-6
