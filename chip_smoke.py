@@ -28,13 +28,20 @@ Phases:
   (e) impl='cuda' vs impl='torch' over 10 KDK steps at N = 16,384
   (f) ms/step and Gint/s of the bench case, best of 3 windows of 100 steps
       (``bench.measure``, |dE/E| < 1e-4 over the windows)
-  (g) the roofline kernels vs their plain versions; then, with their
-      launch counts zeroed, the measurement path: the FMA probe, the
-      bench's capacity probe, the FMA and rsqrt rates and tile_sol at the
-      base pass's shape and at full occupancy, each <= 1.05 x the card's
-      peak (SM count x max clock); the base and band passes as fractions
-      of the speed of light; the base pass at full occupancy (16 copies
-      of its targets at the same S, the same work per block)
+  (g) the roofline kernels vs their plain versions, the moment tile's
+      speed of light (tile_sol_moment_kernel, kernel M's step loop) among
+      them at the base pass's shape within MOMENT_TOL of its plain version
+      (the moments before the finalisation); then, with their launch
+      counts zeroed, the measurement path: the FMA probe, the bench's
+      capacity probe, the FMA and rsqrt rates and tile_sol and
+      tile_sol_moment at the base pass's shape and at full occupancy, each
+      <= 1.05 x the card's peak (SM count x max clock; tile_sol_moment's
+      pairs against the MUFU peak and its TF32 FLOPs against the tensor
+      cores' dense peak); the base and band passes as fractions of the
+      speed of light; the base pass at full occupancy (16 copies of its
+      targets at the same S, the same work per block); kernel M at its
+      own shape as a fraction of tile_sol_moment at both shapes, and at
+      full occupancy, beside the base pass's fractions of tile_sol
   (h) the tile sweep at N = 65,536 (every geometry within 2e-6 * max of
       the default's accelerations), bench_suite sections 1-3 (errors vs
       the fp64 oracle <= 3e-6), and the single-pass kernel's plain time
@@ -158,12 +165,15 @@ Phases:
       clustered data at N = 65,536 (finite, max < 0.5, median < 5e-3 acc
       and < 1e-3 pot); (q.5) 3 x 100 KDK steps of the bench case with
       tile_config {'mxu': True} and with precision='float32_fast' (ms/step,
-      |dE/E| < 1e-4); (q.6) gate1m with target_drift=1e-8 (M unfolded) for
-      GATE1M_STEPS steps, its final state's force against the float64 sum
-      at P_SAMPLE targets (3e-6) and M at that shape against its plain
-      version on the last two target tiles (MOMENT_TOL); (q.7) the ring with mxu=True over RING_RUN_D
-      virtual shards at (120, -80, 40) within 2e-6 of one card.  The
-      default paths of phases (d)-(p) launch neither M nor F.
+      |dE/E| < 1e-4); (q.6) gate1m with target_drift=1e-8 for
+      GATE1M_STEPS steps, on the VPU form (it launches no kernel M), its
+      final state's force against the float64 sum at P_SAMPLE targets
+      (3e-6) through that solver and through kernel M unfolded
+      (tile_config {'mxu': True}), and M at that shape against its plain
+      version on the last two target tiles (MOMENT_TOL); (q.7) the ring
+      with mxu=True over RING_RUN_D virtual shards at (120, -80, 40)
+      within 2e-6 of one card.  The default paths of phases (d)-(p)
+      launch neither M nor F.
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card, and
@@ -172,8 +182,9 @@ the launches of each run path of phases (d), (i), (j), (k), (m), (n), (o),
 (p) and (q) under ``launches_by_path``, counted by kernel form (the base pass, the single
 pass, the band pass) where the wrapper launches it, and in phase (g)'s
 measurement path for the roofline kernels; max error and times from
-(b)/(g)/(k)/(l) (tile_sol at full occupancy, the shape where it bounds
-the base pass), each kernel's bound (the largest of its FP32 operations
+(b)/(g)/(k)/(l) (tile_sol and tile_sol_moment at full occupancy, the
+shape where each bounds its pass; tile_sol_moment's entry carries kernel
+M's fractions of it), each kernel's bound (the largest of its FP32 operations
 over the card's FP32 peak, its rsqrts over its MUFU rate and its bytes
 over the memory rate; ``bound_pipe`` says which, ``fp32_share`` is the
 share of the FP32 bound alone), slots a pair from the SASS where read
@@ -214,7 +225,7 @@ OCC_COPIES = 16
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # dense TF32 on the tensor cores (NVIDIA's data sheet, H100 SXM); a
-# 3xTF32 product issues three of them
+# 3xTF32 product issues two mma passes (csrc/direct_math.cuh)
 PEAK_TF32 = 495e12
 # FP32 operations a pair, the rsqrt counted as one.  Newtonian force with
 # Kahan: 3 subtracts, 6 for r^2 + eps2, 1 rsqrt, 3 multiplies (inv^3 and
@@ -377,11 +388,13 @@ MOMENT_KERNELS = {"fold": "kernel M", "unfold": "kernel M, unfolded",
                   "fast": "kernel F", "fast_pot": "kernel F, potential"}
 # FP32 operations a pair (an FMA counted as two): the Newtonian factor
 # (dx, r^2, the cube: 11; F's expanded r^2 takes 7 where dx and r^2 take
-# 9), the TF32 split of the factor (2), its add into the tile's moments
-# (1) and, unfolded, G m (1); and TF32 tensor FLOPs a pair: 3 passes of
-# m16n8k8 (2 x 16 x 8 x 8) over 16 x 8 pairs, F twice that
-MOMENT_FLOPS = {"fold": 14, "unfold": 15, "fast": 12, "fast_pot": 10}
-TENSOR_FLOPS = {"fold": 48, "unfold": 48, "fast": 96, "fast_pot": 96}
+# 9), the subtraction of the factor's TF32 split (1; its rounding is two
+# integer operations, off the FP32 pipe), its add into the step's moments
+# (1) and, unfolded, G m (1); and TF32 tensor FLOPs a pair: 2 passes of
+# m16n8k8 (2 x 16 x 8 x 8) over 16 x 8 pairs (3xTF32 in two passes,
+# csrc/direct_math.cuh), F twice that for its cross term
+MOMENT_FLOPS = {"fold": 13, "unfold": 14, "fast": 11, "fast_pot": 9}
+TENSOR_FLOPS = {"fold": 32, "unfold": 32, "fast": 64, "fast_pot": 64}
 
 
 def log(msg):
@@ -823,6 +836,27 @@ def phase_g(dev, base):
         log(f"(g) tile_sol_kernel<{kind}> at {blocks} blocks, "
             f"{SOL_CHECK_REPS} reps: rel err {rel:.2e} (tol 2e-6), "
             f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    # the moment tile (7m) at the same shape, on random targets and
+    # sources apart (the bench operands hold each block's own particles,
+    # whose self pairs the moment form would sum as ~1/eps2^1.5, as the
+    # TPU's moment form would): its moments before the finalisation
+    # within MOMENT_TOL of its plain version, no cancellation to excuse
+    mom_t, mom_s = tile_sweep.sol_operands("newtonian", tgt.shape[1],
+                                           64 * 64, dev)
+
+    def sol_moment():
+        return rl.tile_sol(mom_t, mom_s, "newtonian", blocks, SOL_CHECK_REPS,
+                           mxu=True)
+
+    got = sol_moment()
+    rel, absolute = rel_err(got, rl._tile_sol_moment_reference(
+        mom_t, mom_s, "newtonian", blocks, SOL_CHECK_REPS))
+    check(torch.isfinite(got).all().item() and rel < MOMENT_TOL,
+          f"tile_sol_moment: {rel:.2e} >= {MOMENT_TOL}")
+    stats["tile_sol_moment"] = dict(max_abs_err=absolute, rel=rel)
+    log(f"(g) tile_sol_moment_kernel at {blocks} blocks, {SOL_CHECK_REPS} "
+        f"reps: rel err {rel:.2e} (tol {MOMENT_TOL:g}), "
+        f"{cuda_ms(sol_moment, 10):.3f} ms")
 
     # the measurement path, its launch counts zeroed just before
     for key in rl.LAUNCHES:
@@ -836,6 +870,10 @@ def phase_g(dev, base):
     sols = {(kind, shape): tile_sweep.sol(
                 kind, grids[kind] if shape == "base" else None, SOL_REPS, dev)
             for kind in ("newtonian", "spline") for shape in ("base", "full")}
+    # the moment tile at kernel M's base-pass shape (its S is row 1's)
+    sols.update({("moment", shape): tile_sweep.sol(
+        "newtonian", grids["newtonian"] if shape == "base" else None,
+        SOL_REPS, dev, mxu=True) for shape in ("base", "full")})
     launches = dict(rl.LAUNCHES)
     check(all(v > 0 for v in launches.values()),
           f"measurement path missed a kernel: {launches}")
@@ -853,6 +891,10 @@ def phase_g(dev, base):
     readings += [(f"tile_sol {kind} {shape} ({r['blocks']} blocks) pairs",
                   r["g_pairs_per_s"] * 1e9, mufu)
                  for (kind, shape), r in sols.items()]
+    readings += [(f"tile_sol_moment {shape} ({sols[('moment', shape)]['blocks']}"
+                  " blocks) TF32 FLOPs", sols[("moment", shape)]["g_pairs_per_s"]
+                  * 1e9 * TENSOR_FLOPS["fold"], PEAK_TF32)
+                 for shape in ("base", "full")]
     for what, rate, peak in readings:
         check(np.isfinite(rate) and 0 < rate <= 1.05 * peak,
               f"{what}: {rate:.4e}/s is not within (0, 1.05 x peak "
@@ -877,6 +919,23 @@ def phase_g(dev, base):
     log(f"(g) tile_sol_kernel<newtonian> at full occupancy "
         f"({full['blocks']} blocks, {SOL_REPS} reps): {full['ms']:.3f} ms "
         f"vs plain {plain_ms:.3f} ms; {describe(b, full['ms'])}")
+    # and 7m's, at its own full occupancy (kernel M's terms a pair: the
+    # FP32 operations, one rsqrt, the tensor FLOPs)
+    full = sols[("moment", "full")]
+    sol_t, sol_s = tile_sweep.sol_operands("newtonian", full["blocks"] * 64,
+                                           64 * 64, dev)
+    pairs = full["blocks"] * 64 * 64 * SOL_REPS
+    plain_ms = cuda_ms(lambda: rl._tile_sol_moment_reference(
+        sol_t, sol_s, "newtonian", full["blocks"], SOL_REPS), 1)
+    b = bound(pairs * MOMENT_FLOPS["fold"],
+              nbytes(sol_t, sol_s) + full["blocks"] * 64 * 4 * 4, pairs,
+              mufu, pairs * TENSOR_FLOPS["fold"])
+    stats["tile_sol_moment"].update(ms=full["ms"], plain_ms=plain_ms,
+                                    blocks=full["blocks"], reps=SOL_REPS,
+                                    **b)
+    log(f"(g) tile_sol_moment_kernel at full occupancy ({full['blocks']} "
+        f"blocks, {SOL_REPS} reps): {full['ms']:.3f} ms vs plain "
+        f"{plain_ms:.3f} ms; {describe(b, full['ms'])}")
 
     # base and band passes (phase b) as fractions of the speed of light
     nt, ns = tgt.shape[1], src.shape[1]
@@ -914,6 +973,32 @@ def phase_g(dev, base):
     sn = sols[("newtonian", "full")]["g_pairs_per_s"] * 1e9
     log(f"(g) base pass at full occupancy: {full_pairs / sn:.4f} of "
         "tile_sol newtonian at full occupancy")
+    # kernel M (row 1m, folded) as a fraction of 7m, beside row 1's of
+    # row 7: at its own shape against both of 7m's, and at full occupancy
+    # (the same OCC_COPIES copies) against 7m's full occupancy
+    def moment_pass(t, s):
+        return cd._moment_tile(t, src, "newtonian", "acc", True, 1e-15, True,
+                               False, nb=nb, start=s, splits=splits)
+
+    m_own = cuda_ms(lambda: moment_pass(tgt, start), 20)
+    m_full = cuda_ms(lambda: moment_pass(tgt_n, start_n), 5)
+    m_pairs = nt * (ns - nb * cd.TN) / (m_own * 1e-3)
+    m_full_pairs = OCC_COPIES * nt * (ns - nb * cd.TN) / (m_full * 1e-3)
+    stats["m_vs_sol"] = {}
+    for shape in ("base", "full"):
+        sm = sols[("moment", shape)]["g_pairs_per_s"] * 1e9
+        sn = sols[("newtonian", shape)]["g_pairs_per_s"] * 1e9
+        stats["m_vs_sol"][shape] = dict(m=m_pairs / sm, row1=own_pairs / sn)
+        log(f"(g) kernel M at its own shape ({m_own:.4f} ms, "
+            f"{m_pairs:.6e} pairs/s) = {m_pairs / sm:.4f} of tile_sol_moment"
+            f" at the {shape} shape ({sm:.6e} pairs/s); row 1 = "
+            f"{own_pairs / sn:.4f} of tile_sol newtonian there")
+    sm = sols[("moment", "full")]["g_pairs_per_s"] * 1e9
+    stats["m_vs_sol"]["occupancy"] = m_full_pairs / sm
+    log(f"(g) kernel M at full occupancy ({OCC_COPIES} copies, "
+        f"{m_full:.3f} ms): {m_full_pairs / sm:.4f} of tile_sol_moment at "
+        f"full occupancy (row 1: {full_pairs / sn:.4f} of tile_sol "
+        "newtonian)")
     log(f"(g) wall {time.perf_counter() - t0:.1f} s")
     return stats, launches
 
@@ -3248,12 +3333,14 @@ def q_fast_bounds(dev):
 
 
 def q_gate1m_state(dev, xyz, n):
-    """(q.6) gate1m's final state (its restart file) at the shape kernel M
-    took there: the force through DirectGravity(target_drift=1e-8)
-    against the float64 sum at P_SAMPLE targets (3e-6 of max; the
-    potential, the row sum, beside it), and kernel M unfolded on the
-    sorted, centred operands of that state against its plain version on
-    the last two target tiles at the wrapper's S (MOMENT_TOL)."""
+    """(q.6) gate1m's final state (its restart file): the force through
+    DirectGravity(target_drift=1e-8), the VPU form, against the float64
+    sum at P_SAMPLE targets (3e-6 of max; the potential, the row sum,
+    beside it); kernel M unfolded through the solver (tile_config {'mxu':
+    True} with target_drift=1e-8) against the same sum (3e-6); and kernel
+    M unfolded on the sorted, centred operands of that state against its
+    plain version on the last two target tiles at the wrapper's S
+    (MOMENT_TOL)."""
     from nbody_streams_tpu_torch.benchmarks import northstar as ns
     from nbody_streams_tpu_torch.ops import cuda_direct as cd
     from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
@@ -3265,12 +3352,26 @@ def q_gate1m_state(dev, xyz, n):
     idx = np.sort(np.random.default_rng(19).choice(n, P_SAMPLE,
                                                    replace=False))
     pos = torch.tensor(xyz, dtype=torch.float32, device=dev)
+    before = dict(cd.LAUNCHES)
+    tag = f"gate1m step {GATE1M_STEPS}, target_drift=1e-8"
+    gravity, want = p_gravity(dev, solver, pos, m, soft, idx, tag, "q.6")
+    check(cd.LAUNCHES["moment"] == before["moment"]
+          and cd.LAUNCHES["base"] > before["base"],
+          "(q.6) target_drift=1e-8 left the VPU form")
+    unfolded = DirectGravity(m, soft, impl="cuda", device=dev,
+                             target_drift=1e-8, tile_config={"mxu": True})
     before = cd.LAUNCHES["moment"]
-    gravity = p_gravity(dev, solver, pos, m, soft, idx,
-                        f"gate1m step {GATE1M_STEPS}, target_drift=1e-8",
-                        "q.6")[0]
+    got = unfolded.accel(pos)[torch.as_tensor(idx, device=dev)].cpu()
     check(cd.LAUNCHES["moment"] > before,
-          "(q.6) the final state's force ran no kernel M")
+          "(q.6) mxu=True with target_drift=1e-8 ran no kernel M")
+    rel = (np.abs(got.numpy() - want["acc"]).max()
+           / np.abs(want["acc"]).max())
+    log(f"(q.6) {tag}, tile_config {{'mxu': True}} (kernel M unfolded): "
+        f"DirectGravity acc vs the float64 sum at {len(idx)} targets: rel "
+        f"err {rel:.3e} (tol 3e-6)")
+    check(np.isfinite(got.numpy()).all() and rel <= 3e-6,
+          f"(q.6) M unfolded vs fp64: {rel:.2e}")
+    gravity["M unfolded acc"] = {"rel": rel}
     # the sorted path's operands of this state, centred as _self_sorted
     # centres them for the moment form
     order = cd.slab_sort_key(pos)
@@ -3301,8 +3402,9 @@ def q_runs(dev):
     tile_config {'mxu': True} and with precision='float32_fast', each with
     its launches zeroed before and read after: ms/step and |dE/E| (the
     1e-4 contract); (q.6) gate1m at N = 1,048,576 for GATE1M_STEPS steps
-    with target_drift=1e-8 (kernel M unfolded): ms/step and |dE/E| from
-    its float64 bracket, then its final state (``q_gate1m_state``); (q.7) the ring over ['cuda:0'] * RING_RUN_D with
+    with target_drift=1e-8 (the VPU form: no kernel M launched): ms/step
+    and |dE/E| from its float64 bracket, then its final state
+    (``q_gate1m_state``); (q.7) the ring over ['cuda:0'] * RING_RUN_D with
     mxu=True on the slab-sorted bench case at (120, -80, 40) against one
     card, within 2e-6."""
     from nbody_streams_tpu_torch import bench, nbody_io
@@ -3345,8 +3447,10 @@ def q_runs(dev):
         f"{rec['value']:.3e} (limit 1e-4); launches {launches['q_gate1m']}")
     check(np.isfinite(rec["value"]) and rec["value"] < 1e-4,
           f"(q.6) gate1m |dE/E| {rec['value']:.3e}")
-    check(launches["q_gate1m"]["moment"] > 0,
-          f"(q.6) gate1m ran no kernel M: {launches['q_gate1m']}")
+    check(launches["q_gate1m"]["moment"] == 0
+          and launches["q_gate1m"]["base"] > 0,
+          f"(q.6) gate1m with target_drift=1e-8 left the VPU form: "
+          f"{launches['q_gate1m']}")
     check(restart[2] == GATE1M_STEPS,
           f"(q.6) gate1m's restart is at step {restart[2]}")
     out["gate1m"].update(q_gate1m_state(dev, restart[0][:, :3], rec["n"]))
@@ -3639,6 +3743,11 @@ def main():
     tensor_rows[0]["unfolded"] = measured(forms["unfold"])
     tensor_rows[1]["potential"] = measured(forms["fast_pot"])
     tensor_rows[2]["shape"] = q_stats["two_set"]["shape"]
+    for r, label in zip(tensor_rows, (
+            "moment_tile_kernel<ACC,fold,Kahan,skip,exact> (M, base pass)",
+            "moment_tile_kernel<ACC,fold,Kahan,skip,fast> (F, base pass)",
+            "moment_tile_kernel<ACC,fold,Kahan,noskip,exact> (M two-set)")):
+        r["slots"] = slots[label]
     kernels = [
         # rows 1 and 3: the sorted path's two passes at the bench case
         row("direct_tile_kernel (base pass)", "base",
@@ -3687,16 +3796,22 @@ def main():
         "fma_chain": "nbody_streams_tpu/ops/probe.py:62, bench.py:95, "
                      "benchmarks/tile_sweep.py:111",
         "rsqrt_chain": "benchmarks/tile_sweep.py:111",
-        "tile_sol": "benchmarks/tile_sweep.py:193"}
+        "tile_sol": "benchmarks/tile_sweep.py:193",
+        "tile_sol_moment": "benchmarks/tile_sweep.py:193 (sol mxu=True)"}
     kernels += [{"name": f"{key}_kernel", "route": "cuda",
                  "source": ROOFLINE_SOURCE, "replaces": replaces[key],
                  "launches": roof_launches[key],
                  **measured(roof_stats[key]), "library_ms": None}
-                for key in ("fma_chain", "rsqrt_chain", "tile_sol")]
-    # tile_sol at full occupancy (phase g), the newtonian form
-    kernels[-1].update(blocks=roof_stats["tile_sol"]["blocks"],
+                for key in replaces]
+    # tile_sol and tile_sol_moment at full occupancy (phase g): the
+    # newtonian force tile, the moment tile (kernel M's fractions of it)
+    kernels[-2].update(blocks=roof_stats["tile_sol"]["blocks"],
                        reps=roof_stats["tile_sol"]["reps"],
                        slots=slots["tile_sol_kernel<NEWTONIAN>"])
+    kernels[-1].update(blocks=roof_stats["tile_sol_moment"]["blocks"],
+                       reps=roof_stats["tile_sol_moment"]["reps"],
+                       slots=slots["tile_sol_moment_kernel"],
+                       m_fraction=roof_stats["m_vs_sol"])
     kernels += tensor_rows
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

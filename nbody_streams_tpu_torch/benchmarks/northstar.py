@@ -14,9 +14,8 @@ Counterpart of the repo's ``benchmarks/northstar.py``:
   |dE/E| from a float64 energy bracket on the host;
 * ``gate1m``: N = 1,048,576 Plummer, 1,000 steps, the |dE/E| < 1e-4 gate;
   a rerun resumes from the restart file a stopped attempt left.
-  ``--steps`` cuts the depth, ``--target-drift`` goes to the solver (below
-  1e-7 the unfolded moment form, kernel M), ``--out`` names the output
-  directory.
+  ``--steps`` cuts the depth, ``--target-drift`` goes to the solver,
+  ``--out`` names the output directory.
 
 The energy bracket sums KE and 0.5 sum m phi in float64 on the host, phi
 from ``DirectGravity(impl='cuda')`` (the kernels' potential form).  The
@@ -181,8 +180,7 @@ def run_gate1m(n=1_048_576, steps=1000, device=None, out=OUT_1M,
                target_drift=None):
     """N = 1M Plummer over ``steps`` steps, the |dE/E| < 1e-4 gate,
     resuming from a restart file an earlier attempt left; returns the JSON
-    record.  ``target_drift`` goes to the solver (below 1e-7 the base pass
-    takes the unfolded moment form, kernel M)."""
+    record.  ``target_drift`` goes to the solver (``DirectGravity``)."""
     from ..sim import run_simulation
 
     device = _device(device)

@@ -24,7 +24,11 @@ from pathlib import Path
 #: 1 = plummer, 4 = spline; MODE 0 = acc, 1 = pot; Kahan on; SKIP on for
 #: the base pass.  A potential form holds two pair loops, the diagonal
 #: tile's masked one and the unmasked one; the reader takes the shorter,
-#: the unmasked loop that every other tile runs.
+#: the unmasked loop that every other tile runs.  moment_tile_kernel's
+#: arguments are <MODE, FOLD, KAHAN, SKIP, FAST> (fold / unfold: G m in
+#: the moments or in the factor; exact / fast: r^2 from dx or expanded):
+#: each lane computes four pair factors a step of 8 sources, one MUFU.RSQ
+#: each, so its loop's slots over its rsqrts are slots a pair as well.
 KERNELS = {
     "direct_tile_kernel<NEWTONIAN,ACC,Kahan,skip> (base pass)":
         "direct_tile_kernelILi0ELi0ELb1ELb1E",
@@ -41,6 +45,17 @@ KERNELS = {
     "combine_kernel<Kahan>": "combine_kernelILb1E",
     "tile_sol_kernel<NEWTONIAN>": "tile_sol_kernelILi0E",
     "tile_sol_kernel<SPLINE>": "tile_sol_kernelILi4E",
+    "moment_tile_kernel<ACC,fold,Kahan,skip,exact> (M, base pass)":
+        "moment_tile_kernelILi0ELb1ELb1ELb1ELb0E",
+    "moment_tile_kernel<ACC,unfold,Kahan,skip,exact> (M unfolded)":
+        "moment_tile_kernelILi0ELb0ELb1ELb1ELb0E",
+    "moment_tile_kernel<ACC,fold,Kahan,skip,fast> (F, base pass)":
+        "moment_tile_kernelILi0ELb1ELb1ELb1ELb1E",
+    "moment_tile_kernel<POT,fold,Kahan,skip,fast> (F potential)":
+        "moment_tile_kernelILi1ELb1ELb1ELb1ELb1E",
+    "moment_tile_kernel<ACC,fold,Kahan,noskip,exact> (M two-set)":
+        "moment_tile_kernelILi0ELb1ELb1ELb0ELb0E",
+    "tile_sol_moment_kernel": "tile_sol_moment_kernel",
 }
 
 _FUNC = re.compile(r"Function : (\S+)")

@@ -1,8 +1,8 @@
 """Single-card kernel headroom study.
 
     python -m nbody_streams_tpu_torch.benchmarks.tile_sweep \\
-        roofline | sol [kind ...] | sweep64k | sweep1m | splits
-        [--device DEV]
+        roofline | sol [kind ...] | solmxu | moment | sweep64k | sweep1m
+        | splits [--device DEV]
 
 Counterpart of the repo's ``benchmarks/tile_sweep.py``:
 
@@ -16,8 +16,16 @@ Counterpart of the repo's ``benchmarks/tile_sweep.py``:
 3. ``sol``: the speed of light of the exact pair arithmetic of the force
    kernels on a resident source tile (``tile_sol_kernel``), at the base
    pass's own launch shape (N / 64 = 1,024 blocks at N = 65,536) and at
-   full occupancy (blocks that fill every SM).
-4. ``splits``: the base and band passes alone at N = 16k to 256k
+   full occupancy (blocks that fill every SM).  ``solmxu``: the moment
+   tile's (``tile_sol_moment_kernel``, kernel M's step loop; Newtonian)
+   beside the spline force tile, each at both shapes, as the TPU's
+   ``solmxu`` mode sets the moment base pass beside the band pass.
+4. ``moment``: the tensor-core forms of the base pass at the bench case
+   (kernels M folded and unfolded, F acc and pot, each against its plain
+   version), M's two-set form at the ring's D = 4 far tile, row 1 and
+   row 2's Newtonian tile at the same operands, and the moment tile's
+   speed of light at the base pass's shape and at full occupancy.
+5. ``splits``: the base and band passes alone at N = 16k to 256k
    for forced source-stream split counts S and for the S that
    ``split_count`` picks, with the default geometry.
 
@@ -25,8 +33,8 @@ Each measurement prints one JSON line that names its device, timed by
 CUDA events on a CUDA device.  The device is ``cuda`` unless one is
 named, and a CUDA device that torch cannot see raises; a CPU device is
 named explicitly and runs the plain versions under the host clock, a CPU
-number for tests.  The TPU-history modes (``mxu*``, ``refine*``,
-``reuse64k``) are not ported.
+number for tests.  The TPU-history modes (``mxu``, ``mxu2``, ``mxu3``,
+``refine64k``, ``reuse64k``) are not ported.
 """
 from __future__ import annotations
 
@@ -182,25 +190,116 @@ def sol_operands(kind, nt, ns, device, seed=3):
 
 
 def sol(kind="spline", blocks=None, reps=1024, device="cuda",
-        timing_reps=3):
+        timing_reps=3, mxu=False):
     """Pair-arithmetic speed of light: ``tile_sol_kernel`` over ``blocks``
     blocks (default: full occupancy) of 64 targets, each against one
     resident tile of 64 sources, ``reps`` passes.  pairs/s here bounds
     ``direct_tile_kernel`` (newtonian: the base pass; spline: the band
-    and single passes) at the same launch shape."""
+    and single passes) at the same launch shape.  With ``mxu`` the moment
+    tile (``tile_sol_moment_kernel``, Newtonian only): it bounds kernel M
+    (``moment_tile_kernel``, the base pass with ``tile_config={'mxu':
+    True}``)."""
     device = _device(device)
     if blocks is None:
-        blocks = rl.tile_sol_blocks(kind, device)
+        blocks = rl.tile_sol_blocks(kind, device, mxu)
     tgt, src = sol_operands(kind, blocks * cd.BLOCK, 64 * cd.BLOCK, device)
-    y = rl.tile_sol(tgt, src, kind, blocks, reps)
+    y = rl.tile_sol(tgt, src, kind, blocks, reps, mxu=mxu)
     if not torch.isfinite(y).all():
-        raise RuntimeError(f"tile_sol {kind} is not finite")
-    dt = time_call(lambda: rl.tile_sol(tgt, src, kind, blocks, reps), device,
-                   timing_reps)
+        raise RuntimeError(f"tile_sol {kind} mxu={mxu} is not finite")
+    dt = time_call(lambda: rl.tile_sol(tgt, src, kind, blocks, reps,
+                                       mxu=mxu), device, timing_reps)
     pairs = blocks * cd.BLOCK * cd.BLOCK * reps
     return _emit(device, {"metric": f"{kind}_kahan_arith_speed_of_light",
-                  "blocks": blocks, "reps": reps,
+                  "mxu": mxu, "blocks": blocks, "reps": reps,
                   "g_pairs_per_s": pairs / dt / 1e9, "ms": dt * 1e3})
+
+
+#: Kernel M and F forms of ``moment``: (mode, fold_mass, fast).
+MOMENT_FORMS = {"fold": ("acc", True, False), "unfold": ("acc", False, False),
+                "fast": ("acc", True, True), "fast_pot": ("pot", True, True)}
+
+
+def moment_forms(n=65536, iters=30, device="cuda", sol_reps=1024):
+    """Time the tensor-core forms at the bench case (N = ``n`` Plummer,
+    seed 2, spline h = 0.05, slab-sorted and centred as the sorted path
+    hands them to the base pass): kernels M and F (``MOMENT_FORMS``) each
+    with ``rel``, max |kernel - plain| / max |plain| at the kernel's S;
+    M's two-set form at the ring's D = 4 far tile (shard 1's targets
+    against shard 3's sources); row 1 and row 2's Newtonian tile on the
+    same operands; tile_sol_moment at the base pass's shape (N / 64 x S
+    blocks) and, on a card, at full occupancy.  One JSON line each;
+    returns the records by name."""
+    from .. import make_plummer_sphere
+    from ..parallel.sharded import slab_sort_for_sharding
+
+    device = _device(device)
+    f32 = dict(dtype=torch.float32, device=device)
+    xv, m = make_plummer_sphere(n, M_total=1e9, a=1.0, seed=2)
+    gm_all = torch.tensor(m * 4.300917270069976e-06, **f32)
+    pos = torch.tensor(xv[:, :3], **f32)
+    order = cd.slab_sort_key(pos)
+    ps = pos[order] - pos[order].mean(0, keepdim=True)
+    h = torch.full((n,), 0.05, **f32)
+    hinv = cd._soft_pre("spline", h)
+    first, _, rows = cd.band_window(ps[:, 0], h.max())
+    nb = cd.band_rows(rows)
+    start = first.clamp(0, rows - nb).to(torch.int32).contiguous()
+    tgt, src = cd._targets(ps, hinv), cd._sources(ps, gm_all[order], hinv,
+                                                  cd.TN)
+    ns = src.shape[1]
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else 1)
+    splits = cd.split_count("direct", n, ns, sms, nb, cd.TN)
+    pairs = n * (ns - nb * cd.TN)
+    out = {}
+
+    def emit(name, fn, pairs, ref=None, **extra):
+        rel = None
+        if ref is not None:
+            got, want = fn(), ref()
+            diff = (got.double() - want.double()).abs().max()
+            scale = want.double().abs().max()
+            rel = (diff / scale if scale > 0 else diff).item()
+        dt = time_call(fn, device, iters)
+        out[name] = _emit(device, {"metric": "moment_forms", "form": name,
+                                   "n": n, "ms": dt * 1e3, "rel": rel,
+                                   "g_pairs_per_s": pairs / dt / 1e9,
+                                   **extra})
+
+    for name, (mode, fold, fast) in MOMENT_FORMS.items():
+        args = (tgt, src, "newtonian", mode, True, 1e-15, fold, fast)
+        emit(name, lambda a=args: cd._moment_tile(
+                 *a, nb=nb, start=start, splits=splits), pairs,
+             lambda a=args: cd._moment_tile_reference(
+                 *a, nb=nb, start=start, splits=splits), splits=splits)
+    emit("row1", lambda: cd._direct_tile(tgt, src, "newtonian", "acc", True,
+                                         1e-15, False, nb, start,
+                                         splits=splits), pairs,
+         splits=splits)
+    # the ring's far tile at D = 4: shard 1 against shard 3, Newtonian
+    xs, ms_ = slab_sort_for_sharding(xv, m)
+    pr = torch.tensor(xs[:, :3], **f32)
+    pr = pr - pr.mean(0, keepdim=True)
+    gr = torch.tensor(ms_ * 4.300917270069976e-06, **f32)
+    pre = cd._soft_pre("newtonian", h)
+    nl = n // 4
+    t2 = cd._targets(pr[nl:2 * nl], pre[nl:2 * nl])
+    s2 = cd._sources(pr[3 * nl:], gr[3 * nl:], pre[3 * nl:], cd.BLOCK)
+    splits2 = cd.split_count("direct", nl, s2.shape[1], sms)
+    args = (t2, s2, "newtonian", "acc", True, 1e-15)
+    emit("2m", lambda: cd._moment_tile(*args, splits=splits2),
+         nl * s2.shape[1],
+         lambda: cd._moment_tile_reference(*args, splits=splits2),
+         splits=splits2)
+    emit("row2_newtonian_tile", lambda: cd._direct_tile(
+        *args, splits=splits2), nl * s2.shape[1], splits=splits2)
+    shapes = {"7m_base": n // cd.BLOCK * splits}
+    if device.type == "cuda":
+        shapes["7m_full"] = None
+    for name, blocks in shapes.items():
+        r = sol("newtonian", blocks, sol_reps, device, 3, mxu=True)
+        out[name] = r
+    return out
 
 
 def main(argv=None):
@@ -216,6 +315,14 @@ def main(argv=None):
         for kind in args.kinds:
             sol(kind, BASE_BLOCKS, device=dev)
             sol(kind, device=dev)
+    elif mode == "solmxu":
+        # the moment tile (kernel M's ceiling) beside the spline force
+        # tile (the band pass's), each at the base pass's shape and full
+        for kind, mxu in (("newtonian", True), ("spline", False)):
+            sol(kind, BASE_BLOCKS, device=dev, mxu=mxu)
+            sol(kind, device=dev, mxu=mxu)
+    elif mode == "moment":
+        moment_forms(device=dev)
     elif mode == "sweep64k":
         sweep(65536, 50, GEOMS_64K, dev)
     elif mode == "sweep1m":
@@ -225,7 +332,7 @@ def main(argv=None):
             split_sweep(n, counts, 30, dev)
     else:
         raise SystemExit(f"unknown mode {mode!r}: roofline | sol [kind ...] "
-                         "| sweep64k | sweep1m | splits")
+                         "| solmxu | moment | sweep64k | sweep1m | splits")
 
 
 if __name__ == "__main__":

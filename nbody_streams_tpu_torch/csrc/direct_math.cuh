@@ -116,26 +116,31 @@ __device__ __forceinline__ float pot_pre(float r2, float pre) {
   }
 }
 
-// Tensor-core products (moment.cu).  A TF32 operand keeps 10 of fp32's 23
-// mantissa bits, so one TF32 product keeps about three decimal digits: the
-// Hopper form of the TPU's bf16 operand trap (the JAX package pins every
-// matrix-unit contraction to Precision.HIGHEST for it).  Every product
-// therefore goes through mma_3xtf32: each operand is split as hi =
-// rna_tf32(a) and lo = rna_tf32(a - hi), and d += lo.hi + hi.lo, then
-// hi.hi, into the fp32 fragment; only lo.lo (~2^-22 relative) is dropped.
-// mma_tf32_1pass is the one place that issues the instruction, and only
-// mma_3xtf32 calls it (tests/test_torch_moment.py holds csrc/ to that).
-__device__ __forceinline__ uint32_t rna_tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
-  return r;
-}
-
-// (hi, lo) of one operand: a == hi + lo to ~2^-22 relative.
+// Tensor-core products (moment_math.cuh).  A TF32 operand keeps 10 of
+// fp32's 23 mantissa bits, so one TF32 product keeps about three decimal
+// digits: the Hopper form of the TPU's bf16 operand trap (the JAX package
+// pins every matrix-unit contraction to Precision.HIGHEST for it).  Every
+// product is therefore 3xTF32: each operand is split as hi + lo
+// (split_tf32), and hi.hi, hi.lo and lo.hi all reach the fp32 fragment;
+// only lo.lo (~2^-22 relative) may be dropped.  The two forms below pack
+// the three products into two mma instructions, one through the columns of
+// B, one through the contraction; mma_tf32_1pass is the one place that
+// issues the instruction, and only they call it (tests/test_torch_moment.py
+// holds csrc/ to that).
+//
+// The split: hi is a rounded to TF32 (nearest, ties away: add half a TF32
+// ulp to the bits, clear the 13 low bits; two integer operations, where
+// cvt.rna.tf32.f32 compiles to four with an infinity guard), lo = a - hi
+// exactly in fp32.  lo goes to the tensor cores as it is: they read the
+// top 19 bits of a TF32 operand and ignore the 13 low ones (the compiler
+// itself leaves them unmasked when cvt.rna's result only feeds an mma),
+// so lo is truncated there, an error below 2^-21 |a| of either sign.  A
+// factor that is inf (r^2 = 0) keeps hi = inf and lo = NaN, as the cvt
+// form did; no path hands the moment forms a zero r^2.
 __device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
                                            uint32_t& lo) {
-  hi = rna_tf32(a);
-  lo = rna_tf32(a - __uint_as_float(hi));
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
 }
 
 // d += A(16x8, row) B(8x8, col) in one TF32 pass: m16n8k8, g = lane / 4,
@@ -150,15 +155,30 @@ __device__ __forceinline__ void mma_tf32_1pass(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += A B to fp32 accuracy from split operands (3xTF32): the small cross
-// terms first, the large product last.
-__device__ __forceinline__ void mma_3xtf32(float d[4], const uint32_t a_hi[4],
-                                           const uint32_t a_lo[4],
-                                           const uint32_t b_hi[2],
-                                           const uint32_t b_lo[2]) {
-  mma_tf32_1pass(d, a_lo, b_hi);
-  mma_tf32_1pass(d, a_hi, b_lo);
-  mma_tf32_1pass(d, a_hi, b_hi);
+// 3xTF32 through B's columns, for a product of at most 4 columns: B's
+// columns 0-3 hold the hi halves of those columns and 4-7 their lo halves
+// (b = {B[t][g], B[t+4][g]}, split at staging).  Then D's columns c and
+// c + 4 hold lo.hi + hi.hi and lo.lo + hi.lo of column c; the caller adds
+// them (the lanes t and t ^ 2).  The small product first.
+__device__ __forceinline__ void mma_3xtf32_cols(float d[4],
+                                                const uint32_t a_hi[4],
+                                                const uint32_t a_lo[4],
+                                                const uint32_t b[2]) {
+  mma_tf32_1pass(d, a_lo, b);
+  mma_tf32_1pass(d, a_hi, b);
+}
+
+// 3xTF32 through the contraction, for a contraction of at most 4: A's
+// columns 0-3 hold the hi halves of A and 4-7 its lo halves (a = {hi[g][t],
+// hi[g+8][t], lo[g][t], lo[g+8][t]}); b = {hi, hi, lo, 0}, B's row t,
+// column g split, as the two passes' B operands (staged so, one load).
+// The first pass sums hi.lo (B's lo against A's hi, zero against A's lo),
+// the second hi.hi + lo.hi.
+__device__ __forceinline__ void mma_3xtf32_k4(float d[4], const uint32_t a[4],
+                                              const uint4& b) {
+  const uint32_t lo[2] = {b.z, b.w}, hi[2] = {b.x, b.y};
+  mma_tf32_1pass(d, a, lo);
+  mma_tf32_1pass(d, a, hi);
 }
 
 // Kahan two-sum: (total, comp) += delta

@@ -26,120 +26,48 @@
 // its own targets' rows, so there is no cross-lane reduction for the
 // tensor cores to take over; the callers route it to those forms.
 //
-// Layout (direct_math.cuh): a block of MOM_THREADS threads covers BLOCK
-// targets, one warp 16 of them.  Per step of 8 staged sources a warp issues
-// an mma m16n8k8: A = S (16 targets x 8 sources), B = the moments (8
-// sources x 8 columns, 4 used), D += A B.  Lane (g, t) = (lane / 4,
-// lane % 4) computes exactly the pair factors of its A fragment, targets g
-// and g + 8 against sources 2t and 2t + 1 of the step: A's contraction
-// index is permuted (k = t <-> source 2t, k = t + 4 <-> source 2t + 1) and
-// B's rows are loaded at the same permuted sources, so that FAST's cross
-// term, an mma whose D fragment holds (g, 2t), (g, 2t + 1), (g + 8, 2t),
-// (g + 8, 2t + 1), feeds the moment product without a shuffle.  Every
-// product is 3xTF32 (mma_3xtf32): a single TF32 pass would keep ~3 digits.
-// Sources are staged as direct.cu stages them, plus their moment rows
-// (and FAST's coordinate rows) split into TF32 hi/lo once per source; rows
-// are padded to ROW words so that a warp's B loads hit 16 distinct banks.
-// Each step of 8 sources sums into a fresh fragment, added to the tile's
-// moments in fp32, and each staged tile of BLOCK sources to the running
-// moments with a Kahan two-sum across tiles (KAHAN), as _direct_kernel
-// :360-365 does across its source superblocks.  SKIP and
-// the source-stream splits are direct_tile_kernel's; every split writes
-// its (total, comp) moments to scratch, and moment_finalise_kernel adds
-// them in the fixed order s = 0..S-1 (Kahan) and finalises a_i = P[0:3] -
-// x_i P[3] once per target, with the product and the difference rounded
-// apart as the plain version and the JAX form round them.  The caller
-// centres the coordinates (the finalisation cancels as |x| / |dx|).
+// Layout and step loop: moment_math.cuh (tile_moments).  A block of two
+// warps covers BLOCK targets, 32 a warp in two 16-row groups, and stages
+// BLOCK sources a tile, one a thread, double-buffered: a tile's sources are
+// loaded into registers while the previous tile is summed, split at
+// staging (the moment rows, FAST's coordinate rows), and one barrier a
+// tile separates the buffers.  Each step of 8 sources sums into a fresh
+// fragment, added to the tile's moments in fp32, and each tile to the
+// running moments with a Kahan two-sum across tiles (KAHAN), as
+// _direct_kernel :360-365 does across its source superblocks.  The hi and
+// lo column sums (lanes t and t ^ 2) are added once at the end, by a
+// two-sum that keeps the compensation exact.  SKIP and the source-stream
+// splits are direct_tile_kernel's; every split writes its (total, comp)
+// moments to scratch, and moment_finalise_kernel adds them in the fixed
+// order s = 0..S-1 (Kahan) and finalises a_i = P[0:3] - x_i P[3] once per
+// target, with the product and the difference rounded apart as the plain
+// version and the JAX form round them.  The caller centres the
+// coordinates (the finalisation cancels as |x| / |dx|).
 //
-// What bounds it: per pair the Newtonian factor (r^2, one MUFU rsqrt, a
-// cube: 12 FP32 operations counting an FMA as two, 7 of them r^2 for FAST)
-// and the TF32 split of the factor (2); the mass multiply and the three
-// accumulating FMAs of direct_tile_kernel's 19 move to the tensor cores:
-// 48 TF32 FLOPs a pair (3 passes of 16 x 8 x 8, half of B's columns
-// padding), 96 with FAST's cross term, at 495 TFLOP/s dense.  The MUFU
-// rsqrt (one a pair at 4.18e12/s) is then the largest of the three times,
-// above the FP32 and tensor times.  What the design does about it: the
-// warp-synchronous mma.sync form takes the accumulation off the FP32 pipe
-// and nothing else; not done: wgmma, TMA, a persistent schedule.
+// What bounds it: per pair one MUFU rsqrt (4.18e12/s on the card) is the
+// largest of its three pipe times; the FP32 work (dx and r^2, 9 operations
+// counting an FMA as two, F's expanded r^2 7; the cube 2; the split's
+// subtraction 1; the add of the step's fragment 1) and the tensor work (32
+// TF32 FLOPs a pair: two passes of m16n8k8 over 16 x 8 pairs, 64 with F's
+// cross term) come below it.  On the card the kernel runs at the speed of
+// its own step loop (tile_sol_moment_kernel in roofline.cu runs the same
+// loop on a resident tile; PERF.md), and that loop is bound by issuing its
+// FP32 and integer instructions and waiting on them: taking the mma passes
+// or the rsqrt out of it moves its time by a few percent (PERF.md).  So
+// the design cuts instructions a pair: the split in integer operations with
+// lo fed raw (3 instructions where cvt.rna.tf32 takes 7); 3xTF32 in two mma
+// passes (B's lo halves in its otherwise idle columns 4-7, F's coordinates'
+// lo in the contraction's idle half); B's rows pre-split, unpredicated and
+// zero-padded, one 8-byte load a step (F's cross term one 16-byte load);
+// two target groups a warp sharing each step's loads, with two independent
+// mma chains.  Not done: wgmma (its asynchrony would overlap the tensor
+// work, which is not what bounds the loop), TMA, a persistent schedule.
 
-#include <cstdint>
-
-#include "direct_math.cuh"
+#include "moment_math.cuh"
 
 namespace {
 
 using namespace nbody;
-
-constexpr int MOM_WARPS = BLOCK / 16;        // 16 targets a warp
-constexpr int MOM_THREADS = 32 * MOM_WARPS;
-constexpr int ROW = BLOCK + 8;               // padded staged row (banks)
-
-struct MomTile {
-  float x[BLOCK], y[BLOCK], z[BLOCK], gm[BLOCK], pre[BLOCK];
-  float bs[BLOCK];                           // FAST: |x_s|^2
-  uint32_t b_hi[4][ROW], b_lo[4][ROW];       // moment column c of a source
-  uint32_t c_hi[3][ROW], c_lo[3][ROW];       // FAST: coordinate c
-};
-
-// The moment columns of one source: G m [x y z 1] (FOLD) or [x y z 1]
-// (acc), G m (pot; the other columns zero).
-template <int MODE, bool FOLD, bool FAST>
-__device__ __forceinline__ void stage_moments(MomTile& s,
-                                              const float* __restrict__ src,
-                                              int ns, int j0) {
-  const int k = threadIdx.x;
-  if (k >= BLOCK) return;
-  const int j = j0 + k;
-  const float x = src[j], y = src[ns + j], z = src[2 * ns + j];
-  const float gm = src[3 * ns + j];
-  s.x[k] = x;
-  s.y[k] = y;
-  s.z[k] = z;
-  s.gm[k] = gm;
-  s.pre[k] = src[4 * ns + j];
-  float m[4];
-  if (MODE == ACC) {
-    m[0] = FOLD ? __fmul_rn(gm, x) : x;
-    m[1] = FOLD ? __fmul_rn(gm, y) : y;
-    m[2] = FOLD ? __fmul_rn(gm, z) : z;
-    m[3] = FOLD ? gm : 1.f;
-  } else {
-    m[0] = gm;
-    m[1] = m[2] = m[3] = 0.f;
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) split_tf32(m[c], s.b_hi[c][k], s.b_lo[c][k]);
-  if (FAST) {
-    split_tf32(x, s.c_hi[0][k], s.c_lo[0][k]);
-    split_tf32(y, s.c_hi[1][k], s.c_lo[1][k]);
-    split_tf32(z, s.c_hi[2][k], s.c_lo[2][k]);
-    // b_s = x*x + (y*y + z*z), each operation rounded (pallas_direct :218)
-    s.bs[k] = __fadd_rn(__fmul_rn(x, x),
-                        __fadd_rn(__fmul_rn(y, y), __fmul_rn(z, z)));
-  }
-}
-
-// a_t = x*x + (y*y + (z*z + eps2)), each operation rounded (:342)
-__device__ __forceinline__ float norm2_eps(const Target& t, float eps2) {
-  return __fadd_rn(__fmul_rn(t.x, t.x),
-                   __fadd_rn(__fmul_rn(t.y, t.y),
-                             __fadd_rn(__fmul_rn(t.z, t.z), eps2)));
-}
-
-__device__ __forceinline__ float coord(const Target& t, int c) {
-  return c == 0 ? t.x : (c == 1 ? t.y : (c == 2 ? t.z : 0.f));
-}
-
-// The Newtonian pair factor of target tg and staged source j: the force
-// factor (acc; times G m without FOLD) or the potential factor (pot).
-template <int MODE, bool FOLD>
-__device__ __forceinline__ float factor(const MomTile& s, const Target& tg,
-                                        int j, float r2) {
-  const float pre = pair_pre<NEWTONIAN>(tg.pre, s.pre[j]);
-  const float f = MODE == ACC ? force_pre<NEWTONIAN>(r2, pre)
-                              : pot_pre<NEWTONIAN>(r2, pre);
-  return MODE == ACC && !FOLD ? s.gm[j] * f : f;
-}
 
 // Kernels M and F (see the header): the moments of every target against
 // its split's share of the source tiles, to the split's scratch.
@@ -149,108 +77,66 @@ moment_tile_kernel(const float* __restrict__ tgt, int nt,
                    const float* __restrict__ src, int ns,
                    const int* __restrict__ start, int tm, int tn, int nb,
                    float eps2, float* __restrict__ part) {
-  __shared__ MomTile s;
+  __shared__ MomTile s[2];
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int ia = blockIdx.x * BLOCK + (threadIdx.x >> 5) * 16 + g;
-  const int ib = ia + 8;
-  const Target ta = load_target(tgt, nt, ia), tb = load_target(tgt, nt, ib);
-  // FAST: the cross term's A fragment, rows g and g + 8 of T = [x y z 0..]
-  // (columns t + 4 are padding), and a_t of both targets
-  uint32_t x_hi[4] = {0u, 0u, 0u, 0u}, x_lo[4] = {0u, 0u, 0u, 0u};
-  float at_a = 0.f, at_b = 0.f;
-  if (FAST) {
-    split_tf32(coord(ta, t), x_hi[0], x_lo[0]);
-    split_tf32(coord(tb, t), x_hi[1], x_lo[1]);
-    at_a = norm2_eps(ta, eps2);
-    at_b = norm2_eps(tb, eps2);
-  }
+  // group h's rows: row0 + 16 h (a) and row0 + 16 h + 8 (b)
+  const int row0 = blockIdx.x * BLOCK + (threadIdx.x >> 5) * 16 * GROUPS + g;
+  MomGroup q[GROUPS];
+#pragma unroll
+  for (int h = 0; h < GROUPS; ++h)
+    q[h] = mom_group<FAST>(load_target(tgt, nt, row0 + 16 * h),
+                           load_target(tgt, nt, row0 + 16 * h + 8), eps2);
   const int tiles = ns / BLOCK;
   int band_lo, band_n;
   band_tiles<SKIP>(start, tm, tn, nb, tiles, band_lo, band_n);
   int k_lo, k_hi;
   split_range(tiles - band_n, k_lo, k_hi);
   constexpr int W = MODE == ACC ? 4 : 1;
-  float total[4] = {0.f, 0.f, 0.f, 0.f}, comp[4] = {0.f, 0.f, 0.f, 0.f};
+  float total[GROUPS][4] = {}, comp[GROUPS][4] = {};
+  float v[4];
+  if (k_lo < k_hi)
+    load_source(src, ns, tile_of(k_lo, band_lo, band_n) * BLOCK + threadIdx.x,
+                v);
   for (int k = k_lo; k < k_hi; ++k) {
-    const int j0 = tile_of(k, band_lo, band_n) * BLOCK;
-    __syncthreads();  // the previous tile is consumed
-    stage_moments<MODE, FOLD, FAST>(s, src, ns, j0);
+    // buffer k & 1 was last read two tiles ago, before the last barrier
+    MomTile& buf = s[k & 1];
+    stage_source<MODE, FOLD, FAST>(buf, v);
     __syncthreads();
-    float d[4] = {0.f, 0.f, 0.f, 0.f};  // this tile's moments
-#pragma unroll 2
-    for (int k8 = 0; k8 < BLOCK; k8 += 8) {
-      const int j_lo = k8 + 2 * t, j_hi = j_lo + 1;
-      // the four cells of the lane's A fragment, in fragment order:
-      // (g, j_lo), (g + 8, j_lo), (g, j_hi), (g + 8, j_hi)
-      float r2[4];
-      if (FAST) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        const int row = t < 3 ? t : 2;
-        const uint32_t b_hi[2] = {t < 3 ? s.c_hi[row][k8 + g] : 0u, 0u};
-        const uint32_t b_lo[2] = {t < 3 ? s.c_lo[row][k8 + g] : 0u, 0u};
-        mma_3xtf32(c, x_hi, x_lo, b_hi, b_lo);
-        // c = x_t . x_s at (g, j_lo), (g, j_hi), (g + 8, j_lo), (g + 8, j_hi)
-        const float cross[4] = {c[0], c[2], c[1], c[3]};
+    if (k + 1 < k_hi)  // the next tile's loads fly while this one is summed
+      load_source(src, ns,
+                  tile_of(k + 1, band_lo, band_n) * BLOCK + threadIdx.x, v);
+    float d[GROUPS][4];  // this tile's moments
+    tile_moments<MODE, FOLD, FAST>(buf, q, eps2, d);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = e < 2 ? j_lo : j_hi;
-          const float dxx = s.x[j] - ((e & 1) ? tb.x : ta.x);
-          r2[e] = fmaxf(((e & 1) ? at_b : at_a) + (s.bs[j] - 2.f * cross[e]),
-                        dxx * dxx + eps2);
-        }
-      } else {
+    for (int h = 0; h < GROUPS; ++h) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = e < 2 ? j_lo : j_hi;
-          const Target& q = (e & 1) ? tb : ta;
-          const float dx = s.x[j] - q.x;
-          const float dy = s.y[j] - q.y;
-          const float dz = s.z[j] - q.z;
-          r2[e] = dx * dx + (dy * dy + (dz * dz + eps2));
-        }
+      for (int e = 0; e < 4; ++e) {
+        if (KAHAN) kahan_add(total[h][e], comp[h][e], d[h][e]);
+        else total[h][e] += d[h][e];
       }
-      uint32_t a_hi[4], a_lo[4];
-      split_tf32(factor<MODE, FOLD>(s, ta, j_lo, r2[0]), a_hi[0], a_lo[0]);
-      split_tf32(factor<MODE, FOLD>(s, tb, j_lo, r2[1]), a_hi[1], a_lo[1]);
-      split_tf32(factor<MODE, FOLD>(s, ta, j_hi, r2[2]), a_hi[2], a_lo[2]);
-      split_tf32(factor<MODE, FOLD>(s, tb, j_hi, r2[3]), a_hi[3], a_lo[3]);
-      // B rows at the permuted sources: b = {B[j_lo][g], B[j_hi][g]},
-      // zero past the W moment columns
-      const int col = g & 3;
-      const bool live = g < W;
-      const uint32_t b_hi[2] = {live ? s.b_hi[col][j_lo] : 0u,
-                                live ? s.b_hi[col][j_hi] : 0u};
-      const uint32_t b_lo[2] = {live ? s.b_lo[col][j_lo] : 0u,
-                                live ? s.b_lo[col][j_hi] : 0u};
-      // a fresh fragment a step, added to the tile's moments in fp32
-      // (rounded to nearest): the tensor cores do not round their sums to
-      // nearest, and a bias carried through a tile's 24 products grows
-      // linearly, where the finalisation amplifies it as |x| / |dx|
-      // (2.1e-6 of the plain version at the bench case with one fragment
-      // a tile, 6.2e-7 with one a step: PERF.md §6)
-      float e[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_3xtf32(e, a_hi, a_lo, b_hi, b_lo);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) d[c] += e[c];
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (KAHAN) kahan_add(total[e], comp[e], d[e]);
-      else total[e] += d[e];
     }
   }
-  // d's cells: (ia, 2t), (ia, 2t + 1), (ib, 2t), (ib, 2t + 1)
+  // lane t holds columns 2t, 2t + 1 of the 8-column product; lane t ^ 2
+  // the other half of the same moments.  Cells: (a, 2t), (a, 2t + 1),
+  // (b, 2t), (b, 2t + 1); lanes t = 0, 1 write moments 2t, 2t + 1.
   const long long n = static_cast<long long>(nt) * W;
   float* tot = part + blockIdx.y * n;
   float* cmp = tot + gridDim.y * n;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int i = e < 2 ? ia : ib;
-    const int c = 2 * t + (e & 1);
-    if (i < nt && c < W) {
-      tot[static_cast<long long>(i) * W + c] = total[e];
-      cmp[static_cast<long long>(i) * W + c] = comp[e];
+  for (int h = 0; h < GROUPS; ++h) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float t_o = __shfl_xor_sync(0xffffffffu, total[h][e], 2);
+      const float c_o = __shfl_xor_sync(0xffffffffu, comp[h][e], 2);
+      float sum, err;
+      two_sum(total[h][e], t_o, sum, err);
+      const int i = row0 + 16 * h + (e < 2 ? 0 : 8);
+      const int c = 2 * t + (e & 1);
+      if (i < nt && c < W) {
+        tot[static_cast<long long>(i) * W + c] = sum;
+        cmp[static_cast<long long>(i) * W + c] = (comp[h][e] + c_o) - err;
+      }
     }
   }
 }

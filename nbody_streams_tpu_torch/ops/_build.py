@@ -118,6 +118,10 @@ def library() -> ctypes.CDLL:
         lib.nbody_tile_sol.restype = i
         lib.nbody_tile_sol_occupancy.argtypes = [i, ctypes.POINTER(i)]
         lib.nbody_tile_sol_occupancy.restype = i
+        lib.nbody_tile_sol_moment.argtypes = [i, p, i, p, i, i, i, f, p, p]
+        lib.nbody_tile_sol_moment.restype = i
+        lib.nbody_tile_sol_moment_occupancy.argtypes = [i, ctypes.POINTER(i)]
+        lib.nbody_tile_sol_moment_occupancy.restype = i
         lib.nbody_error_string.argtypes = [i]
         lib.nbody_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -38,7 +38,7 @@ __all__ = ["DirectGravity"]
 
 _TILE_KEYS = {"tm", "tn", "max_sub", "mxu", "fold_mass"}
 
-# target_drift= below this |dE/E| class takes the unfolded moment form
+# target_drift= below this |dE/E| class unfolds G m from the moment form
 # (the JAX package's dispatch.py:50-53): on the TPU the folded moments
 # drifted ~2.1e-7 over 1000 steps at N = 1M against ~1e-8 unfolded
 _FOLD_MASS_DRIFT = 1e-7
@@ -60,12 +60,12 @@ class DirectGravity:
     term on the tensor cores) as the base pass of the slab-sorted spline
     path (``impl='cuda'``, N >= 16384); elsewhere it runs as plain
     'float32' and warns.  ``target_drift`` below 1e-7 (``impl='cuda'``,
-    not fast) takes the unfolded moment form: ``tile_config`` gains
-    ``fold_mass=False`` and ``mxu=True`` unless the caller set them (the
-    TPU sets only ``fold_mass``, its moment form being on by default).  On
-    the H100 that form costs about 1.7 times the default's step at N = 1M
-    and has shown no drift gain over it (PERF.md);
-    ``tile_config={'mxu': False}`` keeps the VPU form.
+    not fast) sets ``fold_mass=False`` in ``tile_config`` unless the
+    caller set it, as the TPU's does: the moment form, if asked for with
+    ``mxu=True``, then keeps G m in the pair factor (kernel M unfolded).
+    It does not turn the moment form on: the default VPU form keeps G m
+    in the pair factor already, and on the H100 kernel M runs slower than
+    it and has shown no drift gain over it (PERF.md).
 
     ``device`` is the card by default; without one it raises, naming
     ``device='cpu'``, the CPU option.  ``devices`` lists the ring's shards
@@ -174,7 +174,6 @@ class DirectGravity:
                     and not self.fast):
                 tile_config = dict(tile_config or {})
                 # an explicit user choice wins over the automatic one
-                tile_config.setdefault("mxu", True)
                 tile_config.setdefault("fold_mass", False)
         self.target_drift = target_drift
 

@@ -386,6 +386,37 @@ def test_tile_sol_kernel_matches_plain(dev, kind):
 
 
 @pytest.mark.cuda
+def test_tile_sol_moment_kernel_matches_plain(dev):
+    """The moment tile's speed of light (tile_sol_moment_kernel, kernel
+    M's step loop): 300 blocks over 5,000 targets and 64 tiles, 8 passes,
+    against its plain version within chip_smoke.MOMENT_TOL (the moments
+    before the finalisation: no cancellation to excuse); one launch."""
+    tgt, src = tile_sweep.sol_operands("newtonian", 5000, 4096, dev)
+    before = rl.LAUNCHES["tile_sol_moment"]
+    got = rl.tile_sol(tgt, src, "newtonian", 300, 8, mxu=True)
+    torch.cuda.synchronize()
+    assert rl.LAUNCHES["tile_sol_moment"] == before + 1
+    want = rl._tile_sol_moment_reference(tgt, src, "newtonian", 300, 8)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) < chip_smoke.MOMENT_TOL
+
+
+@pytest.mark.cuda
+def test_tile_sol_moment_rates_within_the_card_peaks(dev):
+    """At full occupancy the moment tile's pair rate stays within 1.05 x
+    the MUFU peak (one rsqrt a pair) and its TF32 rate within 1.05 x the
+    tensor cores' dense peak."""
+    peaks = probe.card_peaks(dev)
+    s = tile_sweep.sol("newtonian", reps=64, device=dev, timing_reps=1,
+                       mxu=True)
+    assert s["mxu"] is True and s["blocks"] >= peaks["sms"]
+    rate = s["g_pairs_per_s"] * 1e9
+    assert 0 < rate <= 1.05 * peaks["mufu_per_s"]
+    assert (rate * chip_smoke.TENSOR_FLOPS["fold"]
+            <= 1.05 * chip_smoke.PEAK_TF32)
+
+
+@pytest.mark.cuda
 def test_roofline_rates_within_the_card_peak(dev):
     peaks = probe.card_peaks(dev)
     r = tile_sweep.roofline(dev, K=512, passes=256, reps=1)
@@ -947,15 +978,19 @@ def test_moment_forms_match_fp64(dev):
 
 @pytest.mark.cuda
 def test_solver_options_take_the_moment_kernels(dev):
-    """DirectGravity on the card: tile_config {'mxu': True} and
-    target_drift=1e-8 launch kernel M, float32_fast kernel F (acc and
-    pot), the default neither; the band pass runs in every case."""
+    """DirectGravity on the card: tile_config {'mxu': True} launches
+    kernel M (unfolded with target_drift=1e-8), float32_fast kernel F
+    (acc and pot), the default and target_drift=1e-8 alone neither; the
+    band pass runs in every case."""
     xv, m = make_plummer_sphere(65536, M_total=1e9, a=1.0, seed=2)
     pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
     cases = {"default": ({}, {"base": 2}),
              "mxu": (dict(tile_config={"mxu": True}),
                      {"moment": 1, "base": 1}),
-             "drift": (dict(target_drift=1e-8), {"moment": 1, "base": 1}),
+             "drift": (dict(target_drift=1e-8), {"base": 2}),
+             "drift_mxu": (dict(target_drift=1e-8,
+                                tile_config={"mxu": True}),
+                           {"moment": 1, "base": 1}),
              "fast": (dict(precision="float32_fast"), {"fast": 2})}
     for name, (kw, want) in cases.items():
         solver = DirectGravity(m, H, G=G, impl="cuda", device=dev, **kw)

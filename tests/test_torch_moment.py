@@ -207,10 +207,12 @@ def test_fold_mass_unfold_matches(mode, moment_calls):
 
 
 def test_target_drift_selects_unfolded_moments():
-    """DirectGravity(target_drift=): below 1e-7 on impl='cuda' the unfolded
-    moment form (mxu on, fold_mass off: the port's mxu is off by default);
-    looser targets change nothing; an explicit choice wins; geometry
-    merges; non-positive raises; the JAX package sets fold_mass alike."""
+    """DirectGravity(target_drift=): below 1e-7 on impl='cuda' the moment
+    form, where one is asked for, is the unfolded one (fold_mass off, as
+    the JAX package sets it); the form itself stays the default's (the
+    VPU form: kernel M loses to it on the card, PERF.md), and mxu=True
+    with it takes M unfolded; looser targets change nothing; an explicit
+    choice wins; geometry merges; non-positive raises."""
     n = 16384
     m, soft = np.full(n, 1e5), np.full(n, 0.05)
 
@@ -218,17 +220,18 @@ def test_target_drift_selects_unfolded_moments():
         return DirectGravity(m, soft, kernel="spline", impl="cuda",
                              device="cpu", **kw)
 
-    assert mk(target_drift=1e-8).tile_config == {"mxu": True,
-                                                 "fold_mass": False}
+    assert mk(target_drift=1e-8).tile_config == {"fold_mass": False}
+    assert "mxu" not in mk(target_drift=1e-8)._tile
     assert mk(target_drift=1e-5).tile_config is None
     explicit = mk(target_drift=1e-8, tile_config={"fold_mass": True})
-    assert explicit.tile_config == {"fold_mass": True, "mxu": True}
+    assert explicit.tile_config == {"fold_mass": True}
+    on = mk(target_drift=1e-8, tile_config={"mxu": True})
+    assert on.tile_config == {"mxu": True, "fold_mass": False}
     off = mk(target_drift=1e-8, tile_config={"mxu": False})
     assert off.tile_config == {"mxu": False, "fold_mass": False}
     merged = mk(target_drift=1e-8, tile_config={"tm": 256})
-    assert merged.tile_config == {"tm": 256, "mxu": True,
-                                  "fold_mass": False}
-    assert merged._tile == {"tm": 256, "mxu": True, "fold_mass": False}
+    assert merged.tile_config == {"tm": 256, "fold_mass": False}
+    assert merged._tile == {"tm": 256, "fold_mass": False}
     # the torch oracle and the fast tier keep their own sums
     assert DirectGravity(m, soft, impl="torch", device="cpu",
                          target_drift=1e-8).tile_config is None
@@ -242,12 +245,13 @@ def test_target_drift_selects_unfolded_moments():
     jax_tight = JDirect(m, soft, kernel="spline", impl="pallas",
                         target_drift=1e-8)
     assert jax_tight.tile_config == {"fold_mass": False}
+    assert mk(target_drift=1e-8).tile_config == jax_tight.tile_config
 
 
 def test_solver_routes_mxu_and_target_drift(moment_calls, monkeypatch):
-    """DirectGravity takes kernel M for tile_config {'mxu': True} and for
-    target_drift (unfolded) on the sorted path, acc only; the default
-    takes the VPU form."""
+    """DirectGravity takes kernel M for tile_config {'mxu': True} on the
+    sorted path, acc only, and unfolded with target_drift; the default,
+    target_drift alone among them, takes the VPU form."""
     monkeypatch.setattr(cd, "SORT_MIN_N", 2048)
     pos, gm, soft = _gauss(5)
     p = torch.tensor(pos)
@@ -266,6 +270,10 @@ def test_solver_routes_mxu_and_target_drift(moment_calls, monkeypatch):
         mxu.potential(p)
         drift = solver(tile_config=TILE, target_drift=1e-8)
         drift.accel(p)
+        assert len(moment_calls) == 1
+        drift_mxu = solver(tile_config={**TILE, "mxu": True},
+                           target_drift=1e-8)
+        drift_mxu.accel(p)
     assert moment_calls == [("acc", True, False, True),
                             ("acc", False, False, True)]
     want = _jax_sorted(pos, gm, soft, "acc", mxu=True)
@@ -437,23 +445,51 @@ def test_every_mma_goes_through_3xtf32():
     """A single TF32 pass keeps ~3 decimal digits (the Hopper form of the
     TPU's bf16 trap, test_pallas.py::test_mxu_contractions_pin_operand_
     precision), invisible to any CPU test.  So in csrc/ the mma
-    instruction is issued in one place, mma_tf32_1pass, which only
-    mma_3xtf32 calls, and every operand it gets is split hi/lo."""
+    instruction is issued in one place, mma_tf32_1pass, which only the two
+    3xTF32 forms call, twice each, so that the hi.hi, hi.lo and lo.hi
+    products all reach the fragment: mma_3xtf32_cols (A split, against
+    B's hi and lo halves in its columns 0-3 and 4-7) and mma_3xtf32_k4 (B
+    split, against A's hi and lo halves in the contraction's two halves).
+    Every operand the moment tile hands them is split hi/lo: the pair
+    factors, the moment columns, F's source and target coordinates."""
     csrc = Path(cd.__file__).resolve().parent.parent / "csrc"
     sources = {p.name: p.read_text() for p in sorted(csrc.glob("*.cu*"))}
     issue = {n: len(re.findall(r'"mma\.sync\b', s))
              for n, s in sources.items()}
     assert issue == {**{n: 0 for n in sources}, "direct_math.cuh": 1}
     math = sources["direct_math.cuh"]
-    body = math[math.index("void mma_3xtf32("):]
-    body = body[:body.index("\n}\n")]
-    assert body.count("mma_tf32_1pass(") == 3
-    assert re.findall(r"mma_tf32_1pass\(d, (\w+), (\w+)\)", body) == [
-        ("a_lo", "b_hi"), ("a_hi", "b_lo"), ("a_hi", "b_hi")]
+
+    def body(head):
+        text = math[math.index(head):]
+        return text[:text.index("\n}\n")]
+
+    pairs = r"mma_tf32_1pass\(d, (\w+), (\w+)\)"
+    cols = body("void mma_3xtf32_cols(")
+    assert re.findall(pairs, cols) == [("a_lo", "b"), ("a_hi", "b")]
+    k4 = body("void mma_3xtf32_k4(")
+    assert re.findall(pairs, k4) == [("a", "lo"), ("a", "hi")]
+    assert "lo[2] = {b.z, b.w}, hi[2] = {b.x, b.y}" in k4
     calls = sum(len(re.findall(r"\bmma_tf32_1pass\(", s))
                 for s in sources.values())
-    assert calls == 1 + 3          # its definition and mma_3xtf32's calls
-    # every moment product is 3xTF32 on split operands
-    moment = sources["moment.cu"]
-    assert len(re.findall(r"\bmma_3xtf32\(", moment)) == 2
-    assert "split_tf32(" in moment and "cvt.rna.tf32" in math
+    assert calls == 1 + 2 + 2      # its definition and the forms' calls
+    # the split rounds hi to TF32 and keeps lo = a - hi exactly
+    split = body("void split_tf32(")
+    assert "+ 0x1000u) & 0xffffe000u" in split
+    assert "a - __uint_as_float(hi)" in split
+    # the moment tile's products, each on split operands
+    moment = sources["moment_math.cuh"]
+    forms = ("mma_3xtf32_cols", "mma_3xtf32_k4")
+    assert {n: len(re.findall(rf"\b{n}\(", moment)) for n in forms} == {
+        n: 1 for n in forms}
+    for n in forms:   # defined in direct_math.cuh, called in the tile alone
+        users = [f for f, s in sources.items() if re.search(rf"\b{n}\(", s)]
+        assert users == ["direct_math.cuh", "moment_math.cuh"]
+    assert re.search(r"mma_3xtf32_cols\(acc, a_hi, a_lo, b\)", moment)
+    assert re.search(r"split_tf32\(factor<MODE, FOLD>\([^;]*a_hi\[e\], "
+                     r"a_lo\[e\]\)", moment)
+    assert "split_tf32(m[c], s.bm[c][k], s.bm[c + 4][k])" in moment
+    # F's source coordinates: the k4 form's b = {hi, hi, lo, 0}
+    assert "split_tf32(xyz[c], hi, lo);" in moment
+    assert "s.cc[c][k] = make_uint4(hi, hi, lo, 0u);" in moment
+    assert "split_tf32(coord(a, t), q.x[0], q.x[2])" in moment
+    assert "split_tf32(coord(b, t), q.x[1], q.x[3])" in moment

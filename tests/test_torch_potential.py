@@ -184,12 +184,16 @@ def test_init_state_keeps_a_tensor_device():
 # and Mode, the Kahan and skip flags)
 _MANGLED = {"NEWTONIAN": "Li0E", "PLUMMER": "Li1E", "DEHNEN_K1": "Li2E",
             "DEHNEN_K2": "Li3E", "SPLINE": "Li4E", "ACC": "Li0E",
-            "POT": "Li1E", "Kahan": "Lb1E", "skip": "Lb1E"}
+            "POT": "Li1E", "Kahan": "Lb1E", "skip": "Lb1E",
+            "noskip": "Lb0E", "fold": "Lb1E", "unfold": "Lb0E",
+            "fast": "Lb1E", "exact": "Lb0E"}
 
 
 def _fragment(label):
     """The mangled-name fragment of a KERNELS label."""
-    name, _, rest = label.partition("<")
+    name, angle, rest = label.partition("<")
+    if not angle:                  # no template: the name alone
+        return name
     args = rest.split(">")[0].split(",")
     frag = "".join(_MANGLED[a] for a in args)
     if name == "direct_tile_kernel" and "skip" not in args:

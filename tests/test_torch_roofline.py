@@ -13,6 +13,7 @@ relative for the chains and the tile (fp32 against numpy fp32 or the
 fp64 oracle, after up to a few hundred roundings); 1e-6 * max between the
 sorted path and the Pallas kernels (the TOL of test_torch_direct.py).
 """
+import json
 import warnings
 
 import jax.numpy as jnp
@@ -150,6 +151,66 @@ def test_tile_sol_reference_matches_jax_pairwise(kind):
     assert _rel(got, np.concatenate(want)) < 1e-5
 
 
+def _jax_moment_tile(tgt, src, i, j):
+    """The TPU's moment tile, ``_tile_sum(mxu=True)`` (Newtonian, acc,
+    folded; precision HIGHEST), of targets ``i`` against sources ``j``
+    (64 each) with jnp arrays as the refs: (64, 4) un-finalised moments
+    as float32 numpy."""
+    t, s = tgt.numpy(), src.numpy()
+    col = lambda a: jnp.asarray(a[:, None])          # noqa: E731
+    row = lambda a: jnp.asarray(a[None, :])          # noqa: E731
+    return np.asarray(jpd._tile_sum(
+        "newtonian", "acc", False, 1e-15, cd.BLOCK, cd.BLOCK, 1,
+        col(t[0, i]), col(t[1, i]), col(t[2, i]), col(t[3, i]), None,
+        row(s[0, j]), row(s[1, j]), row(s[2, j]), row(s[3, j]),
+        row(s[4, j]), 0, 0, mxu=True))
+
+
+def test_tile_sol_moment_reference_matches_jax_tile_sum():
+    """One block, one pass: the plain version of tile_sol_moment_kernel is
+    the TPU's moment tile of the block's 64 targets against its source
+    tile, within 3e-6 of max."""
+    tgt, src, _ = _sol_case("newtonian", nt=64, ns=64)
+    got = rl.tile_sol(tgt, src, "newtonian", 1, 1, mxu=True)
+    assert got.shape == (cd.BLOCK, 4) and got.dtype == torch.float32
+    lane = np.arange(cd.BLOCK)
+    assert _rel(got, _jax_moment_tile(tgt, src, lane, lane)) < 3e-6
+
+
+def test_tile_sol_moment_reference_matches_a_kahan_loop_of_jax_tiles():
+    """Five blocks over 192 targets and two source tiles (the targets and
+    the tiles both wrap), three passes: each pass the TPU's moment tile,
+    a float32 Kahan step, and the targets nudged by the running moments
+    (1e-30, as tile_sol_kernel), in a numpy loop; within 3e-6 of max."""
+    blocks, reps = 5, 3
+    tgt, src, _ = _sol_case("newtonian")
+    got = rl.tile_sol(tgt, src, "newtonian", blocks, reps, mxu=True)
+    assert got.shape == (blocks * cd.BLOCK, 4)
+    f32, lane = np.float32, np.arange(cd.BLOCK)
+    want = []
+    for b in range(blocks):
+        i = (b * cd.BLOCK + lane) % tgt.shape[1]
+        j = (b % 2) * cd.BLOCK + lane
+        t = tgt.clone()
+        total = np.zeros((cd.BLOCK, 4), f32)
+        comp = np.zeros_like(total)
+        for _ in range(reps):
+            part = _jax_moment_tile(t, src, i, j).astype(f32)
+            y = part - comp
+            new = total + y
+            comp = (new - total) - y
+            total = new
+            for c in range(3):
+                t[c, i] = torch.tensor(tgt[c, i].numpy()
+                                       + total[:, c] * f32(rl.NUDGE))
+        want.append(total)
+    want = np.concatenate(want)
+    assert _rel(got, want) < 3e-6
+    # a pass more moves every moment: the plain version does each pass
+    more = rl.tile_sol(tgt, src, "newtonian", blocks, reps + 1, mxu=True)
+    assert np.all(np.abs(more.numpy() - got.numpy()) > 0)
+
+
 def test_cpu_tensors_run_the_plain_versions():
     before = dict(rl.LAUNCHES)
     x = probe.probe_tile("cpu", (8, 8))
@@ -159,6 +220,10 @@ def test_cpu_tensors_run_the_plain_versions():
     tgt, src, _ = _sol_case("spline")
     assert torch.equal(rl.tile_sol(tgt, src, "spline", 2, 2),
                        rl._tile_sol_reference(tgt, src, "spline", 2, 2))
+    tgt, src, _ = _sol_case("newtonian")
+    assert torch.equal(
+        rl.tile_sol(tgt, src, "newtonian", 2, 2, mxu=True),
+        rl._tile_sol_moment_reference(tgt, src, "newtonian", 2, 2))
     assert rl.LAUNCHES == before
 
 
@@ -177,6 +242,28 @@ def test_roofline_wrappers_check_their_operands():
         rl.tile_sol(tgt, src, "spline", 0, 1)
     with pytest.raises(ValueError, match="CUDA device"):
         rl.tile_sol_blocks("spline", "cpu")
+
+
+def test_tile_sol_moment_checks_its_operands():
+    """The moment tile takes the Newtonian law alone (kernel M's), and the
+    operand checks of the force tile; full occupancy needs a card."""
+    tgt, src, _ = _sol_case("newtonian")
+    for kind in ("spline", "plummer"):
+        with pytest.raises(ValueError, match="newtonian"):
+            rl.tile_sol(tgt, src, kind, 1, 1, mxu=True)
+        with pytest.raises(ValueError, match="Newtonian"):
+            rl._tile_sol_moment_reference(tgt, src, kind, 1, 1)
+    with pytest.raises(ValueError, match="multiple"):
+        rl.tile_sol(tgt, src[:, :100].contiguous(), "newtonian", 1, 1,
+                    mxu=True)
+    with pytest.raises(ValueError, match="float32"):
+        rl.tile_sol(tgt.double(), src, "newtonian", 1, 1, mxu=True)
+    with pytest.raises(ValueError, match="positive"):
+        rl.tile_sol(tgt, src, "newtonian", 1, 0, mxu=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rl.tile_sol_blocks("newtonian", "cpu", mxu=True)
+    with pytest.raises(ValueError, match="kind"):
+        rl.tile_sol_blocks("spline", "cuda", mxu=True)
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +404,52 @@ def test_tile_sweep_roofline_and_sol_run_on_cpu():
     assert {r["fma"]["device"], r["rsqrt"]["device"], s["device"]} == {"cpu"}
 
 
+def test_tile_sweep_sol_mxu_and_solmxu_run_on_cpu(monkeypatch, capsys):
+    """sol(mxu=True) runs the moment tile's plain version on a named CPU
+    device; the solmxu mode runs it and the spline force tile, each at
+    the base pass's shape and at full occupancy (here two blocks, a few
+    passes: full occupancy is a card's), one JSON line each."""
+    s = tile_sweep.sol("newtonian", blocks=2, reps=2, device="cpu",
+                       timing_reps=1, mxu=True)
+    assert s["mxu"] is True and s["blocks"] == 2 and s["device"] == "cpu"
+    assert s["g_pairs_per_s"] > 0
+    with pytest.raises(ValueError, match="kind"):
+        tile_sweep.sol("spline", blocks=2, reps=2, device="cpu", mxu=True)
+    calls = []
+    real = tile_sweep.sol
+
+    def sol(kind, blocks=None, device="cuda", mxu=False):
+        calls.append((kind, blocks, mxu))
+        return real(kind, 2 if blocks is None else blocks, 2, device, 1,
+                    mxu)
+
+    monkeypatch.setattr(tile_sweep, "sol", sol)
+    monkeypatch.setattr(tile_sweep, "BASE_BLOCKS", 1)
+    capsys.readouterr()
+    tile_sweep.main(["solmxu", "--device", "cpu"])
+    assert calls == [("newtonian", 1, True), ("newtonian", None, True),
+                     ("spline", 1, False), ("spline", None, False)]
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [(r["metric"], r["mxu"]) for r in lines] == [
+        ("newtonian_kahan_arith_speed_of_light", True)] * 2 + [
+        ("spline_kahan_arith_speed_of_light", False)] * 2
+
+
+def test_tile_sweep_moment_mode_runs_on_cpu():
+    """The moment mode on a named CPU device at a small N: kernels M and F
+    (their plain versions here), row 1, the ring's far tile in M's
+    two-set form and row 2's Newtonian tile, and the moment tile at the
+    base pass's shape (full occupancy is a card's)."""
+    out = tile_sweep.moment_forms(n=4096, iters=1, device="cpu",
+                                  sol_reps=2)
+    assert set(out) == {*tile_sweep.MOMENT_FORMS, "row1", "2m",
+                        "row2_newtonian_tile", "7m_base"}
+    for name in (*tile_sweep.MOMENT_FORMS, "2m"):
+        assert out[name]["rel"] < 1e-6 and out[name]["ms"] > 0
+    assert out["7m_base"]["mxu"] is True
+    assert {r["device"] for r in out.values()} == {"cpu"}
+
+
 def test_measurement_clis_need_a_cuda_device_unless_told(monkeypatch):
     """Without a CUDA device the sweep and the suite raise instead of
     timing the CPU; only a CPU device named outright runs the plain
@@ -418,3 +551,54 @@ def test_sass_reader_counts_the_inner_loop(monkeypatch):
     monkeypatch.setattr(sass, "KERNELS", {"combine": "combine_kernel"})
     with pytest.raises(KeyError, match="combine"):
         sass.profile(_SASS, "")
+
+
+# A moment kernel's step loop in miniature: each lane computes four pair
+# factors a step (four MUFU.RSQ), splits them, and issues the tensor-core
+# products; the staging loop before it holds no rsqrt.
+_MOMENT_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_118moment_tile_kernelILi0ELb1ELb1ELb1ELb0EEEvPKf
+.L_x_7:
+        /*0000*/                   LDG.E R2, desc[UR4][R4.64] ;  /* 0x0 */
+        /*0010*/                   STS [R3], R2 ;  /* 0x0 */
+        /*0020*/               @P0 BRA `(.L_x_7) ;  /* 0x0 */
+.L_x_8:
+        /*0030*/                   LDS.128 R4, [R20] ;  /* 0x0 */
+        /*0040*/                   FADD R8, R4, -R12 ;  /* 0x0 */
+        /*0050*/                   MUFU.RSQ R9, R8 ;  /* 0x0 */
+        /*0060*/                   MUFU.RSQ R10, R8 ;  /* 0x0 */
+        /*0070*/                   MUFU.RSQ R11, R8 ;  /* 0x0 */
+        /*0080*/                   MUFU.RSQ R13, R8 ;  /* 0x0 */
+        /*0090*/                   LOP3.LUT R14, R9, 0xffffe000, RZ, 0xc0, !PT ;  /* 0x0 */
+        /*00a0*/                   HMMA.1688.F32.TF32 R16, R24, R28, R16 ;  /* 0x0 */
+        /*00b0*/                   HMMA.1688.F32.TF32 R16, R26, R28, R16 ;  /* 0x0 */
+        /*00c0*/               @P1 BRA `(.L_x_8) ;  /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_122tile_sol_moment_kernelEPKfiS1_iifPf
+.L_x_2:
+        /*0000*/                   MUFU.RSQ R9, R8 ;  /* 0x0 */
+        /*0010*/                   MUFU.RSQ R10, R8 ;  /* 0x0 */
+        /*0020*/                   HMMA.1688.F32.TF32 R16, R24, R28, R16 ;  /* 0x0 */
+        /*0030*/                   SHFL.IDX PT, R3, R16, R2, 0x1f ;  /* 0x0 */
+        /*0040*/                   NOP ;  /* 0x0 */
+        /*0050*/               @P1 BRA `(.L_x_2) ;  /* 0x0 */
+"""
+
+
+def test_sass_reader_reads_the_moment_kernels(monkeypatch):
+    """The reader finds kernel M's and the moment tile's step loops by
+    their new KERNELS entries (the loop with the rsqrts, not the staging
+    loop) and counts slots a pair over the MUFU.RSQ a lane issues: four
+    pairs a trip in M's loop."""
+    labels = {"M": "moment_tile_kernel<ACC,fold,Kahan,skip,exact> "
+                   "(M, base pass)",
+              "7m": "tile_sol_moment_kernel"}
+    assert set(labels.values()) <= set(sass.KERNELS)
+    monkeypatch.setattr(sass, "KERNELS", {
+        k: sass.KERNELS[v] for k, v in labels.items()})
+    prof = sass.profile(_MOMENT_SASS, "")
+    m, sol = prof["M"], prof["7m"]
+    assert m["pairs_per_trip"] == 4 and m["slots_per_pair"] == 10 / 4
+    assert m["per_pair"] == {"BRA": 0.25, "FADD": 0.25, "HMMA": 0.5,
+                             "LDS": 0.25, "LOP3": 0.25, "MUFU.RSQ": 1.0}
+    assert sol["pairs_per_trip"] == 2 and sol["slots_per_pair"] == 2.5
+    assert sol["per_pair"]["SHFL"] == 0.5 and "NOP" not in sol["per_pair"]
