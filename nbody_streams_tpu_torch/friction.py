@@ -39,6 +39,7 @@ import torch
 
 from .constants import G_DEFAULT
 from .integrate import ForceExtra
+from .telemetry import span
 from .utils.interp import spline_coeffs
 
 __all__ = [
@@ -432,12 +433,14 @@ class ChandrasekharFriction(ForceExtra):
         m_bound = state.get("m_bound")
         bound = state.get("bound")
         if refresh and use_phi:
-            r_com, v_com, bound, m_bound = bound_center_phi(
-                pos, vel, mass, phi, state["r_com"], state["v_com"], dt,
-                r_max=self.bound_r_max)
+            with span("friction.centre"):
+                r_com, v_com, bound, m_bound = bound_center_phi(
+                    pos, vel, mass, phi, state["r_com"], state["v_com"], dt,
+                    r_max=self.bound_r_max)
         elif refresh:
-            r_com, v_com, r_sph = shrinking_sphere_com(
-                pos, vel, mass, self.shrink_n_iter, self.shrink_frac)
+            with span("friction.centre"):
+                r_com, v_com, r_sph = shrinking_sphere_com(
+                    pos, vel, mass, self.shrink_n_iter, self.shrink_frac)
         else:
             a = state["a_df"]
             r_com = state["r_com"] + state["v_com"] * dt + 0.5 * a * dt * dt
@@ -448,9 +451,10 @@ class ChandrasekharFriction(ForceExtra):
         else:
             m_eff = self.M_sat
 
-        r = torch.linalg.norm(r_com)
-        rho = self.pot.density(r_com, t=t)
-        sig = self.sigma(r, t=t)
+        with span("friction.density"):
+            r = torch.linalg.norm(r_com)
+            rho = self.pot.density(r_com, t=t)
+            sig = self.sigma(r, t=t)
         a_df = chandrasekhar_accel(
             r_com, v_com, m_eff, rho, sig, t, G=self.G,
             coulomb_mode=self.coulomb_mode,

@@ -21,6 +21,7 @@ import torch
 from ._device import resolve_device
 from .ops.cuda_direct import slab_sort_key
 from .ops.pairwise import _as_tensor
+from .telemetry import span
 
 __all__ = ["IntegratorState", "ForceExtra", "make_accel_fn",
            "make_kdk_step", "run_chunk", "init_state", "system_energy",
@@ -87,19 +88,24 @@ def make_accel_fn(
 
     def accel(pos, vel, t, step, ext_acc, extra_state, refresh_ext=False,
               order=None):
-        acc = solver.accel(pos, order=order)
+        with span("dispatch.gravity", step):
+            acc = solver.accel(pos, order=order)
         if external_potential is not None:
             if refresh_ext or k <= 1 or step % k == 0:
-                ext_acc = torch.as_tensor(
-                    external_potential.force(pos, t), dtype=acc.dtype,
-                    device=acc.device)
+                with span("field.force", step):
+                    ext_acc = torch.as_tensor(
+                        external_potential.force(pos, t), dtype=acc.dtype,
+                        device=acc.device)
             acc = acc + ext_acc
         if force_extra is not None:
-            # the carried slab order is reused for phi too
-            phi = (solver.potential(pos, order=order)
-                   if getattr(force_extra, "needs_phi", False) else None)
-            extra, extra_state = force_extra(
-                extra_state, pos, vel, mass, t, phi=phi, step=step)
+            phi = None
+            if getattr(force_extra, "needs_phi", False):
+                # the carried slab order is reused for phi too
+                with span("dispatch.gravity", step):
+                    phi = solver.potential(pos, order=order)
+            with span("friction.step", step):
+                extra, extra_state = force_extra(
+                    extra_state, pos, vel, mass, t, phi=phi, step=step)
             acc = acc + torch.as_tensor(extra, dtype=acc.dtype,
                                         device=acc.device)
         return acc, ext_acc, extra_state
@@ -147,8 +153,9 @@ def run_chunk(step_fn, state: IntegratorState, n_steps: int,
     for i in range(n_steps):
         if (presort and i == 0) or (presort_every and i
                                     and i % presort_every == 0):
-            state = dataclasses.replace(state,
-                                        sort_order=slab_sort_key(state.pos))
+            with span("dispatch.sort", state.step):
+                order = slab_sort_key(state.pos)
+            state = dataclasses.replace(state, sort_order=order)
         state = step_fn(state)
     return state
 

@@ -64,6 +64,7 @@ import warnings
 import torch
 
 from ..constants import KERNEL_IDS, PAIRWISE_EPS2, validate_kernel
+from ..telemetry import span
 from .pairwise import kahan_add
 
 __all__ = ["cuda_accel", "cuda_potential", "cuda_accel_2set",
@@ -729,7 +730,9 @@ def _self_sorted(pos, gmass, soft, kind, kahan, mode, eps2, tm=None,
     src = _sources(ps, gs, hinv, tn)
     # The TPU path picks the branch on the device (lax.cond); here the
     # comparison is read on the host: one device sync per call.
-    if int(max_width) <= nb:
+    with span("dispatch.sync"):
+        width = int(max_width)
+    if width <= nb:
         BRANCHES["two_pass"] += 1
         start = first.clamp(0, rows - nb).to(torch.int32).contiguous()
         if moment:

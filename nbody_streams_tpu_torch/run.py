@@ -7,7 +7,8 @@ Snapshot and restart files are the JAX package's formats (``nbody_io``),
 so a run started by either package resumes in the other.  Self-gravity is
 ``DirectGravity`` or the solver a ``solver_factory`` builds (the SCF tier);
 an external field and a ``ForceExtra`` (the dynamical friction) add their
-terms.  ``profile_dir`` traces the chunks with ``torch.profiler``.
+terms.  ``profile_dir`` traces the chunks with ``torch.profiler``, the
+program's spans (``telemetry``) included.
 ``devices`` with more than one entry runs the ring of shards
 (``parallel/sharded.py``); an N the shard count does not divide is padded
 with zero-mass ghost rows, frozen and stripped from every output.
@@ -43,6 +44,7 @@ from .nbody_io import (
 )
 from .ops.dispatch import DirectGravity
 from .species import Species
+from .telemetry import annotating, span
 
 __all__ = ["run_nbody", "run_nbody_tpu",
            "run_nbody_gpu", "run_nbody_cpu"]
@@ -186,7 +188,8 @@ def _profiled(profile_dir, device: torch.device):
     """``torch.profiler`` around the run's chunks when ``profile_dir`` is
     set (CPU activity, and CUDA activity on the card); the Chrome trace
     is written into ``profile_dir`` on the way out, as the JAX package's
-    ``jax.profiler.start_trace`` / ``stop_trace`` pair does."""
+    ``jax.profiler.start_trace`` / ``stop_trace`` pair does; the program's
+    spans show in it (``telemetry.annotating``)."""
     if not profile_dir:
         yield
         return
@@ -200,7 +203,8 @@ def _profiled(profile_dir, device: torch.device):
     prof = profile(activities=activities)
     prof.__enter__()
     try:
-        yield
+        with annotating():
+            yield
     finally:
         _synchronize(device)
         prof.__exit__(None, None, None)
@@ -279,7 +283,10 @@ def run_nbody(
       SCF tier); ``impl``/``kernel``/``block_size`` then do not apply.
     * ``profile_dir``: the chunks run under ``torch.profiler`` (CPU and,
       on the card, CUDA activity), and a Chrome trace is written into
-      ``profile_dir`` when the loop ends, a failing run's included.
+      ``profile_dir`` when the loop ends, a failing run's included.  The
+      trace holds the program's spans (``integrator.chunk``,
+      ``dispatch.gravity``, ``field.force``, ``friction.step``, the
+      ``*.sync`` host reads, ...), listed in ``telemetry.py``.
     * ``devices``: with more than one entry (``['cuda:0', 'cuda:1']``, or
       virtual shards of one device such as ``['cpu'] * 8``) the force runs
       on the ring of shards (``impl='sharded'``).  When N is not a
@@ -289,252 +296,261 @@ def run_nbody(
       included) and stripped from the return value, the snapshots, the
       restart file and the energies.
     """
-    validate_kernel(kernel)
-    validate_precision(precision)
-    if external_potential is not None and not callable(
-            getattr(external_potential, "force", None)):
-        raise TypeError(
-            "external_potential must have a force(pos, t) method; got "
-            f"{type(external_potential).__name__}")
-    phase_space = np.asarray(phase_space, np.float64)
-    if phase_space.ndim != 2 or phase_space.shape[1] != 6:
-        raise ValueError(f"phase_space must be (N, 6), got {phase_space.shape}")
-    n = phase_space.shape[0]
-    masses = np.asarray(masses, np.float64)
-    if masses.ndim == 0:
-        masses = np.full(n, float(masses))
-    if masses.shape != (n,):
-        raise ValueError(f"masses must have length N={n}, got {masses.shape}")
-    soft_arr = np.asarray(softening, np.float64)
-    if soft_arr.ndim == 0:
-        soft_arr = np.full(n, float(soft_arr))
-
-    output_path = Path(output_dir)
-
-    # Overwrite / continue guards (reference: run.py:513-526)
-    if save_snapshots and not continue_run:
-        existing = sorted(output_path.glob("snapshot*.h5"))
-        if existing:
-            if overwrite:
-                for f in existing:
-                    f.unlink()
-                (output_path / "snapshot.times").unlink(missing_ok=True)
-                # a stale restart.npz from the clobbered run must not
-                # survive: a later continue_run would resume the OLD run
-                (output_path / "restart.npz").unlink(missing_ok=True)
-                if verbose:
-                    print(f"Removed {len(existing)} existing snapshot "
-                          f"file(s) in '{output_dir}'.")
-            else:
-                raise FileExistsError(
-                    f"Output directory '{output_dir}' already contains "
-                    f"snapshot files: {[f.name for f in existing]}. Pass "
-                    "overwrite=True to delete them, or continue_run=True "
-                    "to resume."
-                )
-
-    start_step = 0
-    t_now = float(time_start)
-    snapshot_counter = None
-    saved_state = None
-    xv = phase_space.copy()
-    if continue_run:
-        restart = _load_restart(output_path)
-        if restart is not None:
-            xv, t_now, start_step, saved_counter = restart[:4]
-            saved_state = restart[8]
-            # reference-format files carry no counter: leave None so the
-            # searchsorted fallback below reconstructs it from start_step
-            snapshot_counter = (None if saved_counter is None
-                                else int(saved_counter))
-            if verbose:
-                print(f"Resuming from step {start_step}, time {t_now:.6e}")
-        elif save_snapshots and sorted(output_path.glob("snapshot*.h5")):
-            # no restart but old snapshots present: starting from step 0
-            # would silently no-op every write (snapshots are append-only)
-            raise FileNotFoundError(
-                f"continue_run=True but '{output_path}/restart.npz' is "
-                "missing while snapshot files exist — cannot resume. "
-                "Pass overwrite=True to start over, or restore the "
-                "restart file.")
-        else:
-            warnings.warn(
-                "continue_run=True but no restart.npz found in "
-                f"'{output_path}': starting a fresh run from step 0",
-                stacklevel=2)
-
-    total_steps = int(round((time_end - time_start) / dt))
-    snap_steps = _snapshot_schedule(total_steps, snapshots)
-    if snapshot_counter is None:
-        snapshot_counter = int(np.searchsorted(snap_steps, start_step, "left"))
-
-    device = _resolve_device(architecture)
-    state_dtype = torch.float64 if precision == "float64" else torch.float32
-
-    snap_kwargs = dict(
-        num_files_to_write=num_files_to_write,
-        total_expected_snapshots=snapshots,
-        time_step=dt,
-    )
-    restart_kwargs = {}
-    if species is not None:
-        snap_kwargs["species"] = species
-        restart_kwargs = dict(
-            mass_arr=masses,
-            softening_arr=soft_arr,
-            species_names=[s.name for s in species],
-            species_N=[s.N for s in species],
-        )
-    else:
-        # full array: nbody_io smart storage compresses to a scalar when
-        # uniform; masses[0] alone would mislabel unequal-mass runs
-        snap_kwargs["mass_dark"] = np.asarray(masses, float)
-        snap_kwargs["eps_dark"] = np.asarray(soft_arr, float)
-
-    if solver_factory is not None:
-        solver = solver_factory(masses, soft_arr, device=device)
-    else:
-        solver = DirectGravity(
-            masses, soft_arr, G=G, kernel=kernel, precision=precision,
-            impl=impl, block_size=block_size, device=device,
-            target_drift=target_drift, devices=devices,
-        )
-        device = solver.device
-    # Ghost padding (sharded backend, N not divisible by the shard count):
-    # integrate N + pad rows so every shard holds n_local rows.  Ghosts are
-    # zero-mass (invisible to forces and mass-weighted diagnostics), frozen
-    # (zero-masked acceleration below) and stripped from every host-visible
-    # output.
-    pad = getattr(solver, "state_pad", 0)
-    mass_dev = (torch.nn.functional.pad(solver.mass, (0, pad)) if pad
-                else solver.mass)
-
-    external_potential, fx = run_copies(external_potential, force_extra,
-                                        masses, device, state_dtype, pad=pad)
-
-    if verbose:
-        print("=" * 70)
-        print(f"N-body integration  [{device.type}/{solver.impl}, "
-              f"{precision}, kernel={getattr(solver, 'kernel', kernel)}]")
-        print(f"Particles: {n:,}  steps: {total_steps:,} "
-              f"(start {start_step})  dt={dt:.3e}"
-              + (f"  [+{pad} zero-mass ghost rows: even shards]"
-                 if pad else ""))
-        print("=" * 70)
-
-    accel_fn = make_accel_fn(solver, mass_dev, external_potential,
-                             external_update_interval, fx)
-    if pad:
-        _base_accel = accel_fn
-        _live = torch.cat([torch.ones((n, 1), dtype=state_dtype),
-                           torch.zeros((pad, 1), dtype=state_dtype)]).to(
-                               device)
-
-        def accel_fn(pos, vel, t, step, ext_acc, extra_state,
-                     refresh_ext=False, order=None):
-            acc, ext_acc, extra_state = _base_accel(
-                pos, vel, t, step, ext_acc, extra_state,
-                refresh_ext=refresh_ext, order=order)
-            # freeze the ghosts: one multiply a step
-            return acc * _live, ext_acc, extra_state
-    step_fn = make_kdk_step(accel_fn, dt, time_start,
-                            compensated=(precision == "float32_kahan"))
-
-    # slab-order reuse: the order is carried in the state and refreshed
-    # every presort_every steps, not per force call
-    presort = solver.spatial_sort_active
-    presort_every = getattr(solver, "presort_interval", None)
-    xv_init = xv
-    if pad:
-        # ghost rows at the last real particle's position (inside the last
-        # shard's x-interval, so the ring's far test does not change) with
-        # zero velocity
-        ghost = np.repeat(xv[-1:], pad, axis=0)
-        ghost[:, 3:] = 0.0
-        xv_init = np.vstack([xv, ghost])
-    # a resume restores the compensations and the extra force's state its
-    # restart file holds, so that it continues the run it stopped
-    comp, extra0 = _resumed_state(saved_state, pad, device)
-    state = init_state(
-        xv_init[:, :3], xv_init[:, 3:], accel_fn, mass_dev, time_start,
-        start_step=start_step, dt=dt, dtype=state_dtype, force_extra=fx,
-        sort_fn=solver.sort_key if presort else None, device=device,
-        comp=comp, extra_state=extra0 if fx is not None else None,
-    )
-
-    e_ref = None
-    if debug_energy:
-        ke, pe = system_energy(state, solver, mass_dev)
-        e_ref = float(ke) + float(pe)
-        if verbose:
-            print(f"[energy t0] KE={float(ke):.4e} PE={float(pe):.4e} "
-                  f"E={e_ref:.4e}")
-
-    def fetch_xv(st: IntegratorState) -> np.ndarray:
-        # [:n] strips the ghost rows (all rows when pad == 0)
-        return torch.cat([st.pos[:n], st.vel[:n]], dim=1).cpu().numpy(
-        ).astype(np.float64)
-
-    def write_snapshot(xv_host, counter, t):
-        _save_snapshot(xv_host, counter, t, output_path, **snap_kwargs)
-        _update_snapshot_times(output_path, counter, t)
-        if verbose:
-            print(f"  snapshot {counter:03d} @ t={t:.6e}")
-
-    # Initial snapshot if scheduled at start_step
-    if (snapshot_counter < len(snap_steps)
-            and snap_steps[snapshot_counter] == start_step):
-        if save_snapshots:
-            write_snapshot(fetch_xv(state), snapshot_counter, t_now)
-        snapshot_counter += 1
-
-    # Event boundaries: snapshot steps + restart multiples.  With
-    # snapshots off, keep a bounded NaN-check cadence (<= 250 steps).
-    if save_snapshots:
-        events = set(snap_steps[snap_steps > start_step].tolist())
-    elif nan_check:
-        events = set(range(start_step + 250, total_steps, 250))
-    else:
-        events = set()
-    if restart_interval and restart_interval > 0:
-        events.update(range(
-            ((start_step // restart_interval) + 1) * restart_interval,
-            total_steps + 1, restart_interval))
-    events.add(total_steps)
-    if _stop_step is not None:
-        # a private hook for the drivers' tests: this call ends at that
-        # step with its restart file written, as a run stopped at a
-        # checkpoint would, and a call with continue_run=True resumes it
-        if not start_step < _stop_step <= total_steps:
+    # the call's start: the solver, the field's copy, the first force
+    with span("entry.start"):
+        validate_kernel(kernel)
+        validate_precision(precision)
+        if external_potential is not None and not callable(
+                getattr(external_potential, "force", None)):
+            raise TypeError(
+                "external_potential must have a force(pos, t) method; got "
+                f"{type(external_potential).__name__}")
+        phase_space = np.asarray(phase_space, np.float64)
+        if phase_space.ndim != 2 or phase_space.shape[1] != 6:
             raise ValueError(
-                f"_stop_step={_stop_step} must lie in ({start_step}, "
-                f"{total_steps}]: after the start step and within the run")
-        events = {e for e in events if e < _stop_step} | {_stop_step}
-    boundaries = sorted(e for e in events if e > start_step)
+                f"phase_space must be (N, 6), got {phase_space.shape}")
+        n = phase_space.shape[0]
+        masses = np.asarray(masses, np.float64)
+        if masses.ndim == 0:
+            masses = np.full(n, float(masses))
+        if masses.shape != (n,):
+            raise ValueError(
+                f"masses must have length N={n}, got {masses.shape}")
+        soft_arr = np.asarray(softening, np.float64)
+        if soft_arr.ndim == 0:
+            soft_arr = np.full(n, float(soft_arr))
 
-    # emergency payload: the last *completed* state, with its Kahan
-    # compensations and extra (friction) state, and its step and time, set
-    # in one assignment so that the watchdog's thread reads one state
-    last = (xv, _restart_state(state, n) if step_timeout_s else None,
-            start_step, time_start + start_step * dt)
+        output_path = Path(output_dir)
 
-    def emergency_restart():
-        # as a regular restart: a resume from it continues the
-        # compensations and the extra force where the state left them
-        # (the JAX package's emergency restart holds the phase space alone)
-        last_xv, last_state, wd_step, wd_t = last
-        _save_restart(last_xv, wd_t, wd_step, output_path, snapshot_counter,
-                      state=last_state, **restart_kwargs)
-        print(f"WATCHDOG: sub-chunk exceeded the {step_timeout_s}s/step "
-              f"deadline after step {wd_step}; emergency restart (all "
-              f"completed work) saved to {output_path}/restart.npz",
-              flush=True)
+        # Overwrite / continue guards (reference: run.py:513-526)
+        if save_snapshots and not continue_run:
+            existing = sorted(output_path.glob("snapshot*.h5"))
+            if existing:
+                if overwrite:
+                    for f in existing:
+                        f.unlink()
+                    (output_path / "snapshot.times").unlink(missing_ok=True)
+                    # a stale restart.npz from the clobbered run must not
+                    # survive: a later continue_run would resume the OLD run
+                    (output_path / "restart.npz").unlink(missing_ok=True)
+                    if verbose:
+                        print(f"Removed {len(existing)} existing snapshot "
+                              f"file(s) in '{output_dir}'.")
+                else:
+                    raise FileExistsError(
+                        f"Output directory '{output_dir}' already contains "
+                        f"snapshot files: {[f.name for f in existing]}. Pass "
+                        "overwrite=True to delete them, or continue_run=True "
+                        "to resume."
+                    )
 
-    def boundary_guard():
-        # boundary device work (fetch, energy eval) is watched too
-        return (_ChunkWatchdog(step_timeout_s * 4 + _BOUNDARY_GRACE_S,
-                               emergency_restart)
-                if step_timeout_s else contextlib.nullcontext())
+        start_step = 0
+        t_now = float(time_start)
+        snapshot_counter = None
+        saved_state = None
+        xv = phase_space.copy()
+        if continue_run:
+            restart = _load_restart(output_path)
+            if restart is not None:
+                xv, t_now, start_step, saved_counter = restart[:4]
+                saved_state = restart[8]
+                # reference-format files carry no counter: leave None so the
+                # searchsorted fallback below reconstructs it from start_step
+                snapshot_counter = (None if saved_counter is None
+                                    else int(saved_counter))
+                if verbose:
+                    print(f"Resuming from step {start_step}, time {t_now:.6e}")
+            elif save_snapshots and sorted(output_path.glob("snapshot*.h5")):
+                # no restart but old snapshots present: starting from step 0
+                # would silently no-op every write (snapshots are append-only)
+                raise FileNotFoundError(
+                    f"continue_run=True but '{output_path}/restart.npz' is "
+                    "missing while snapshot files exist — cannot resume. "
+                    "Pass overwrite=True to start over, or restore the "
+                    "restart file.")
+            else:
+                warnings.warn(
+                    "continue_run=True but no restart.npz found in "
+                    f"'{output_path}': starting a fresh run from step 0",
+                    stacklevel=2)
+
+        total_steps = int(round((time_end - time_start) / dt))
+        snap_steps = _snapshot_schedule(total_steps, snapshots)
+        if snapshot_counter is None:
+            snapshot_counter = int(np.searchsorted(snap_steps, start_step,
+                                                   "left"))
+
+        device = _resolve_device(architecture)
+        state_dtype = (torch.float64 if precision == "float64"
+                       else torch.float32)
+
+        snap_kwargs = dict(
+            num_files_to_write=num_files_to_write,
+            total_expected_snapshots=snapshots,
+            time_step=dt,
+        )
+        restart_kwargs = {}
+        if species is not None:
+            snap_kwargs["species"] = species
+            restart_kwargs = dict(
+                mass_arr=masses,
+                softening_arr=soft_arr,
+                species_names=[s.name for s in species],
+                species_N=[s.N for s in species],
+            )
+        else:
+            # full array: nbody_io smart storage compresses to a scalar when
+            # uniform; masses[0] alone would mislabel unequal-mass runs
+            snap_kwargs["mass_dark"] = np.asarray(masses, float)
+            snap_kwargs["eps_dark"] = np.asarray(soft_arr, float)
+
+        if solver_factory is not None:
+            solver = solver_factory(masses, soft_arr, device=device)
+        else:
+            solver = DirectGravity(
+                masses, soft_arr, G=G, kernel=kernel, precision=precision,
+                impl=impl, block_size=block_size, device=device,
+                target_drift=target_drift, devices=devices,
+            )
+            device = solver.device
+        # Ghost padding (sharded backend, N not divisible by the shard count):
+        # integrate N + pad rows so every shard holds n_local rows.  Ghosts are
+        # zero-mass (invisible to forces and mass-weighted diagnostics), frozen
+        # (zero-masked acceleration below) and stripped from every host-visible
+        # output.
+        pad = getattr(solver, "state_pad", 0)
+        mass_dev = (torch.nn.functional.pad(solver.mass, (0, pad)) if pad
+                    else solver.mass)
+
+        external_potential, fx = run_copies(
+            external_potential, force_extra, masses, device, state_dtype,
+            pad=pad)
+
+        if verbose:
+            print("=" * 70)
+            print(f"N-body integration  [{device.type}/{solver.impl}, "
+                  f"{precision}, kernel={getattr(solver, 'kernel', kernel)}]")
+            print(f"Particles: {n:,}  steps: {total_steps:,} "
+                  f"(start {start_step})  dt={dt:.3e}"
+                  + (f"  [+{pad} zero-mass ghost rows: even shards]"
+                     if pad else ""))
+            print("=" * 70)
+
+        accel_fn = make_accel_fn(solver, mass_dev, external_potential,
+                                 external_update_interval, fx)
+        if pad:
+            _base_accel = accel_fn
+            _live = torch.cat([torch.ones((n, 1), dtype=state_dtype),
+                               torch.zeros((pad, 1), dtype=state_dtype)]).to(
+                                   device)
+
+            def accel_fn(pos, vel, t, step, ext_acc, extra_state,
+                         refresh_ext=False, order=None):
+                acc, ext_acc, extra_state = _base_accel(
+                    pos, vel, t, step, ext_acc, extra_state,
+                    refresh_ext=refresh_ext, order=order)
+                # freeze the ghosts: one multiply a step
+                return acc * _live, ext_acc, extra_state
+        step_fn = make_kdk_step(accel_fn, dt, time_start,
+                                compensated=(precision == "float32_kahan"))
+
+        # slab-order reuse: the order is carried in the state and refreshed
+        # every presort_every steps, not per force call
+        presort = solver.spatial_sort_active
+        presort_every = getattr(solver, "presort_interval", None)
+        xv_init = xv
+        if pad:
+            # ghost rows at the last real particle's position (inside the last
+            # shard's x-interval, so the ring's far test does not change) with
+            # zero velocity
+            ghost = np.repeat(xv[-1:], pad, axis=0)
+            ghost[:, 3:] = 0.0
+            xv_init = np.vstack([xv, ghost])
+        # a resume restores the compensations and the extra force's state its
+        # restart file holds, so that it continues the run it stopped
+        comp, extra0 = _resumed_state(saved_state, pad, device)
+        state = init_state(
+            xv_init[:, :3], xv_init[:, 3:], accel_fn, mass_dev, time_start,
+            start_step=start_step, dt=dt, dtype=state_dtype, force_extra=fx,
+            sort_fn=solver.sort_key if presort else None, device=device,
+            comp=comp, extra_state=extra0 if fx is not None else None,
+        )
+
+        e_ref = None
+        if debug_energy:
+            ke, pe = system_energy(state, solver, mass_dev)
+            e_ref = float(ke) + float(pe)
+            if verbose:
+                print(f"[energy t0] KE={float(ke):.4e} PE={float(pe):.4e} "
+                      f"E={e_ref:.4e}")
+
+        def fetch_xv(st: IntegratorState) -> np.ndarray:
+            # [:n] strips the ghost rows (all rows when pad == 0)
+            return torch.cat([st.pos[:n], st.vel[:n]], dim=1).cpu().numpy(
+            ).astype(np.float64)
+
+        def write_snapshot(xv_host, counter, t):
+            _save_snapshot(xv_host, counter, t, output_path, **snap_kwargs)
+            _update_snapshot_times(output_path, counter, t)
+            if verbose:
+                print(f"  snapshot {counter:03d} @ t={t:.6e}")
+
+        # Initial snapshot if scheduled at start_step
+        if (snapshot_counter < len(snap_steps)
+                and snap_steps[snapshot_counter] == start_step):
+            if save_snapshots:
+                write_snapshot(fetch_xv(state), snapshot_counter, t_now)
+            snapshot_counter += 1
+
+        # Event boundaries: snapshot steps + restart multiples.  With
+        # snapshots off, keep a bounded NaN-check cadence (<= 250 steps).
+        if save_snapshots:
+            events = set(snap_steps[snap_steps > start_step].tolist())
+        elif nan_check:
+            events = set(range(start_step + 250, total_steps, 250))
+        else:
+            events = set()
+        if restart_interval and restart_interval > 0:
+            events.update(range(
+                ((start_step // restart_interval) + 1) * restart_interval,
+                total_steps + 1, restart_interval))
+        events.add(total_steps)
+        if _stop_step is not None:
+            # a private hook for the flagship2m and northstar tests: this
+            # call ends at that step with its restart file written, as a run
+            # stopped at a checkpoint would, and a call with
+            # continue_run=True resumes it
+            if not start_step < _stop_step <= total_steps:
+                raise ValueError(
+                    f"_stop_step={_stop_step} must lie in ({start_step}, "
+                    f"{total_steps}]: after the start step and within the run")
+            events = {e for e in events if e < _stop_step} | {_stop_step}
+        boundaries = sorted(e for e in events if e > start_step)
+
+        # emergency payload: the last *completed* state, with its Kahan
+        # compensations and extra (friction) state, and its step and time, set
+        # in one assignment so that the watchdog's thread reads one state
+        last = (xv, _restart_state(state, n) if step_timeout_s else None,
+                start_step, time_start + start_step * dt)
+
+        def emergency_restart():
+            # as a regular restart: a resume from it continues the
+            # compensations and the extra force where the state left them
+            # (the JAX package's emergency restart holds the phase space alone)
+            last_xv, last_state, wd_step, wd_t = last
+            _save_restart(last_xv, wd_t, wd_step, output_path,
+                          snapshot_counter, state=last_state,
+                          **restart_kwargs)
+            print(f"WATCHDOG: sub-chunk exceeded the {step_timeout_s}s/step "
+                  f"deadline after step {wd_step}; emergency restart (all "
+                  f"completed work) saved to {output_path}/restart.npz",
+                  flush=True)
+
+        def boundary_guard():
+            # boundary device work (fetch, energy eval) is watched too
+            return (_ChunkWatchdog(step_timeout_s * 4 + _BOUNDARY_GRACE_S,
+                                   emergency_restart)
+                    if step_timeout_s else contextlib.nullcontext())
 
     t_wall0 = pytime.perf_counter()
     current = start_step
@@ -549,83 +565,93 @@ def run_nbody(
             while done < n_steps:
                 s = min(_WATCH_STEPS if step_timeout_s else n_steps,
                         n_steps - done)
-                if step_timeout_s:
-                    with _ChunkWatchdog(step_timeout_s * s + _CHUNK_GRACE_S,
-                                        emergency_restart):
+                with span("integrator.chunk", step=current + done):
+                    if step_timeout_s:
+                        with _ChunkWatchdog(
+                                step_timeout_s * s + _CHUNK_GRACE_S,
+                                emergency_restart):
+                            state = run_chunk(step_fn, state, s,
+                                              presort=presort,
+                                              presort_every=presort_every)
+                            with span("integrator.sync"):
+                                _synchronize(device)
+                    else:
                         state = run_chunk(step_fn, state, s, presort=presort,
                                           presort_every=presort_every)
-                        _synchronize(device)
-                else:
-                    state = run_chunk(step_fn, state, s, presort=presort,
-                                      presort_every=presort_every)
                 done += s
                 if step_timeout_s:
-                    with boundary_guard():
+                    with span("entry.boundary", step=current + done), \
+                            boundary_guard():
                         last = (fetch_xv(state), _restart_state(state, n),
                                 current + done,
                                 time_start + (current + done) * dt)
             current = boundary
             t_now = time_start + current * dt
 
-            due_snap = (snapshot_counter < len(snap_steps)
-                        and current >= snap_steps[snapshot_counter])
-            due_restart = (restart_interval and current % restart_interval == 0
-                           ) or current == total_steps
-            # snapshots-off boundaries exist only as NaN-gate checks
-            due_check = nan_check and not save_snapshots
-            if due_snap or due_restart or debug_energy or due_check:
-                # the watchdog path already fetched this exact state
-                xv_host = last[0] if step_timeout_s else fetch_xv(state)
-                if nan_check and not np.isfinite(xv_host).all():
-                    # the diagnostic payload goes to a SEPARATE file: the last
-                    # good restart.npz must survive the abort
-                    _save_restart(xv_host, t_now, current, output_path,
-                                  snapshot_counter,
-                                  filename="restart_nanabort.npz",
-                                  **restart_kwargs)
-                    raise FloatingPointError(
-                        f"Non-finite phase space at step {current}; "
-                        "offending state saved to "
-                        f"{output_path}/restart_nanabort.npz (the last good "
-                        "restart.npz is untouched — rerun with "
-                        "continue_run=True to resume from it)")
-                while (snapshot_counter < len(snap_steps)
-                       and current >= snap_steps[snapshot_counter]):
-                    if save_snapshots:
-                        write_snapshot(xv_host, snapshot_counter, t_now)
-                    snapshot_counter += 1
-                if due_restart:
-                    _save_restart(xv_host, t_now, current, output_path,
-                                  snapshot_counter,
-                                  state=_restart_state(state, n),
-                                  **restart_kwargs)
-            if verbose:
-                elapsed = pytime.perf_counter() - t_wall0
-                steps_done = current - start_step
-                rate = steps_done / elapsed if elapsed > 0 else 0.0
-                line = (f"  step {current:>7}/{total_steps} | t={t_now:.4e} "
-                        f"| {rate:.1f} steps/s | "
-                        f"avg {1e3 * elapsed / max(steps_done, 1):.1f} "
-                        "ms/step")
-                if debug_energy and e_ref is not None:
-                    with boundary_guard():
-                        ke, pe = system_energy(state, solver, mass_dev)
-                        ke, pe = float(ke), float(pe)
-                    etot = ke + pe
-                    q = f"{ke / abs(pe):.3f}" if pe else "inf"
-                    de = (etot - e_ref) / abs(e_ref) if e_ref else etot - e_ref
-                    line += f" | Q={q} dE/E={de:+.2e}"
-                print(line, flush=True)
+            # the boundary's fetch, NaN check, snapshots and restart
+            with span("entry.boundary", step=current):
+                due_snap = (snapshot_counter < len(snap_steps)
+                            and current >= snap_steps[snapshot_counter])
+                due_restart = (restart_interval
+                               and current % restart_interval == 0
+                               ) or current == total_steps
+                # snapshots-off boundaries exist only as NaN-gate checks
+                due_check = nan_check and not save_snapshots
+                if due_snap or due_restart or debug_energy or due_check:
+                    # the watchdog path already fetched this exact state
+                    xv_host = last[0] if step_timeout_s else fetch_xv(state)
+                    if nan_check and not np.isfinite(xv_host).all():
+                        # the diagnostic payload goes to a SEPARATE file:
+                        # the last good restart.npz must survive the abort
+                        _save_restart(xv_host, t_now, current, output_path,
+                                      snapshot_counter,
+                                      filename="restart_nanabort.npz",
+                                      **restart_kwargs)
+                        raise FloatingPointError(
+                            f"Non-finite phase space at step {current}; "
+                            "offending state saved to "
+                            f"{output_path}/restart_nanabort.npz (the last "
+                            "good restart.npz is untouched — rerun with "
+                            "continue_run=True to resume from it)")
+                    while (snapshot_counter < len(snap_steps)
+                           and current >= snap_steps[snapshot_counter]):
+                        if save_snapshots:
+                            write_snapshot(xv_host, snapshot_counter, t_now)
+                        snapshot_counter += 1
+                    if due_restart:
+                        _save_restart(xv_host, t_now, current, output_path,
+                                      snapshot_counter,
+                                      state=_restart_state(state, n),
+                                      **restart_kwargs)
+                if verbose:
+                    elapsed = pytime.perf_counter() - t_wall0
+                    steps_done = current - start_step
+                    rate = steps_done / elapsed if elapsed > 0 else 0.0
+                    line = (f"  step {current:>7}/{total_steps} | "
+                            f"t={t_now:.4e} | {rate:.1f} steps/s | "
+                            f"avg {1e3 * elapsed / max(steps_done, 1):.1f} "
+                            "ms/step")
+                    if debug_energy and e_ref is not None:
+                        with boundary_guard():
+                            ke, pe = system_energy(state, solver, mass_dev)
+                            ke, pe = float(ke), float(pe)
+                        etot = ke + pe
+                        q = f"{ke / abs(pe):.3f}" if pe else "inf"
+                        de = ((etot - e_ref) / abs(e_ref) if e_ref
+                              else etot - e_ref)
+                        line += f" | Q={q} dE/E={de:+.2e}"
+                    print(line, flush=True)
 
-    with boundary_guard():
-        xv_final = fetch_xv(state)
-    if current != total_steps:
-        # when no boundary reached total_steps (resuming a finished run,
-        # or a _stop_step): save the ACTUAL step of the state, never
-        # total_steps
-        _save_restart(xv_final, t_now, current, output_path,
-                      snapshot_counter, state=_restart_state(state, n),
-                      **restart_kwargs)
+    with span("entry.boundary", step=current):
+        with boundary_guard():
+            xv_final = fetch_xv(state)
+        if current != total_steps:
+            # when no boundary reached total_steps (resuming a finished run,
+            # or a _stop_step): save the ACTUAL step of the state, never
+            # total_steps
+            _save_restart(xv_final, t_now, current, output_path,
+                          snapshot_counter, state=_restart_state(state, n),
+                          **restart_kwargs)
 
     if verbose:
         wall = pytime.perf_counter() - t_wall0

@@ -36,6 +36,7 @@ from .species import (
     _split_by_species,
     _validate_species,
 )
+from .telemetry import span
 
 __all__ = ["run_simulation"]
 
@@ -89,61 +90,64 @@ def run_simulation(
     ``scf_*`` keywords, ``scf_groups`` mapping species names (or slices)
     to per-group options.
     """
-    phase_space = np.asarray(phase_space, np.float64)
-    if phase_space.ndim != 2 or phase_space.shape[1] != 6:
-        raise ValueError(
-            f"phase_space must be (N, 6), got {phase_space.shape}")
-    if architecture not in ("cpu", "gpu", "auto"):
-        raise ValueError(
-            f"architecture must be 'cpu', 'gpu' or 'auto', got "
-            f"{architecture!r}")
-    if method not in ("direct", "tree", "scf"):
-        raise ValueError(
-            f"method must be 'direct', 'tree' or 'scf', got {method!r}")
-
-    _validate_species(phase_space, species)
-    mass_arr, soft_arr = _build_particle_arrays(species)
-    _emit_performance_warnings(phase_space.shape[0], architecture, method)
-
-    kw = dict(kwargs)
-    direct_kwargs = {k: kw.pop(k) for k in list(kw) if k in _DIRECT_KW}
-    df_kwargs = {k: kw.pop(k) for k in list(kw) if k in _DF_KW}
-    scf_kwargs = {k: kw.pop(k) for k in list(kw) if k in _SCF_KW}
-    if scf_kwargs and method != "scf":
-        raise TypeError(
-            f"scf_* kwargs given but method={method!r}: {sorted(scf_kwargs)}")
-    for legacy in ("theta", "nleaf", "ncrit", "level_split", "nthreads"):
-        if legacy in kw:
-            kw.pop(legacy)
-            if verbose:
-                print(f"note: {legacy!r} has no effect (direct summation "
-                      "is exact)")
-    if kw:
-        raise TypeError(f"Unknown keyword arguments: {sorted(kw)}")
-
-    force_extra = None
-    if dynamical_friction:
-        if external_potential is None:
+    # the call's start: checks, the species' arrays, the friction's tables
+    with span("entry.start"):
+        phase_space = np.asarray(phase_space, np.float64)
+        if phase_space.ndim != 2 or phase_space.shape[1] != 6:
             raise ValueError(
-                "dynamical_friction=True requires external_potential")
-        from .friction import make_df_force_extra
+                f"phase_space must be (N, 6), got {phase_space.shape}")
+        if architecture not in ("cpu", "gpu", "auto"):
+            raise ValueError(
+                f"architecture must be 'cpu', 'gpu' or 'auto', got "
+                f"{architecture!r}")
+        if method not in ("direct", "tree", "scf"):
+            raise ValueError(
+                f"method must be 'direct', 'tree' or 'scf', got {method!r}")
 
-        m_sat = df_kwargs.pop("df_M_sat", float(mass_arr.sum()))
-        force_extra = make_df_force_extra(
-            external_potential, M_sat=m_sat, G=G, t_start=time_start,
-            t_end=time_end,
-            **{k.removeprefix("df_"): v for k, v in df_kwargs.items()})
-    elif df_kwargs:
-        raise TypeError(
-            f"df_* kwargs given but dynamical_friction=False: "
-            f"{sorted(df_kwargs)}")
+        _validate_species(phase_space, species)
+        mass_arr, soft_arr = _build_particle_arrays(species)
+        _emit_performance_warnings(phase_space.shape[0], architecture, method)
 
-    # method='tree' runs as 'direct': with devices= naming more than one
-    # device DirectGravity's impl='auto' takes the ring (the JAX package's
-    # impl='sharded'), on one device the one-card path
-    if method == "scf":
-        direct_kwargs["solver_factory"] = _scf_factory(
-            phase_space, species, direct_kwargs, scf_kwargs, G)
+        kw = dict(kwargs)
+        direct_kwargs = {k: kw.pop(k) for k in list(kw) if k in _DIRECT_KW}
+        df_kwargs = {k: kw.pop(k) for k in list(kw) if k in _DF_KW}
+        scf_kwargs = {k: kw.pop(k) for k in list(kw) if k in _SCF_KW}
+        if scf_kwargs and method != "scf":
+            raise TypeError(
+                f"scf_* kwargs given but method={method!r}: "
+                f"{sorted(scf_kwargs)}")
+        for legacy in ("theta", "nleaf", "ncrit", "level_split", "nthreads"):
+            if legacy in kw:
+                kw.pop(legacy)
+                if verbose:
+                    print(f"note: {legacy!r} has no effect (direct summation "
+                          "is exact)")
+        if kw:
+            raise TypeError(f"Unknown keyword arguments: {sorted(kw)}")
+
+        force_extra = None
+        if dynamical_friction:
+            if external_potential is None:
+                raise ValueError(
+                    "dynamical_friction=True requires external_potential")
+            from .friction import make_df_force_extra
+
+            m_sat = df_kwargs.pop("df_M_sat", float(mass_arr.sum()))
+            force_extra = make_df_force_extra(
+                external_potential, M_sat=m_sat, G=G, t_start=time_start,
+                t_end=time_end,
+                **{k.removeprefix("df_"): v for k, v in df_kwargs.items()})
+        elif df_kwargs:
+            raise TypeError(
+                f"df_* kwargs given but dynamical_friction=False: "
+                f"{sorted(df_kwargs)}")
+
+        # method='tree' runs as 'direct': with devices= naming more than one
+        # device DirectGravity's impl='auto' takes the ring (the JAX package's
+        # impl='sharded'), on one device the one-card path
+        if method == "scf":
+            direct_kwargs["solver_factory"] = _scf_factory(
+                phase_space, species, direct_kwargs, scf_kwargs, G)
 
     xv_final = run_nbody(
         phase_space,

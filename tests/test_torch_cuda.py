@@ -33,7 +33,9 @@ card within chip_smoke.RENDER_TOL of the same render on the CPU, holding
 the frame's mass within chip_smoke.MASS_TOL; the native host library's
 kNN on the card machine within chip_smoke.KNN_TOL of cKDTree.  The
 scale drivers: the flagship stopped and resumed within 1e-6 of max of an
-unbroken run, gate1m's |dE/E| < 1e-4.
+unbroken run, gate1m's |dE/E| < 1e-4.  The program's spans: 95% of their
+stored times within 50 us of the profiler's events with CUDA activity on,
+the median within 10 us, and at least 90% of a traced 65,536-body run's device idle time under one.
 """
 import copy
 
@@ -1019,3 +1021,102 @@ def test_ring_mxu_on_virtual_shards_matches_one_card(dev):
     torch.cuda.synchronize()
     assert cd.LAUNCHES["moment_2set"] - before >= 4
     assert _rel(got, one.accel(pos)) < 2e-6
+
+
+WINDOW = "test.window"
+
+
+def _traced_plummer(dev, tmp_path, tag, steps=100, annotate=False):
+    """A 65,536-body Plummer run (the ``plummer_iso.n65k`` cell's shape)
+    of ``steps`` steps under the profiler with CUDA activity, inside a
+    ``WINDOW`` span, the program's spans in the profiler's trace too with
+    ``annotate``; returns (the profile, the program's spans)."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from nbody_streams_tpu_torch import Species, run_simulation, telemetry
+
+    n, dt = 65536, 2e-5
+    xv, m = make_plummer_sphere(n, M_total=1e9, a=1.0, seed=8)
+    sp = [Species.dark(N=n, mass=float(m[0]), softening=0.05)]
+    telemetry.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, (
+            telemetry.annotating() if annotate
+            else contextlib.nullcontext()):
+        with record_function(WINDOW):
+            run_simulation(xv, sp, 0.0, steps * dt, dt, architecture="gpu",
+                           restart_interval=steps - 1, save_snapshots=False,
+                           output_dir=str(tmp_path / tag), verbose=False)
+            torch.cuda.synchronize()
+    return prof, telemetry.spans()
+
+
+def _idle_gaps(prof):
+    """The device's idle gaps ((start, end) ns) inside the ``WINDOW``
+    span: the window less the union of its kernels, copies and fills (the
+    profiler's annotation ranges on the device left out)."""
+    events = prof.profiler.kineto_results.events()
+    w0, w1 = next((e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in events if e.name() == WINDOW
+                  and str(e.device_type()).endswith("CPU"))
+    def kind(e):
+        kind = getattr(e, "activity_type", None)
+        return str(kind()).lower() if callable(kind) else ""
+
+    busy = sorted(
+        (max(e.start_ns(), w0), min(e.start_ns() + e.duration_ns(), w1))
+        for e in events if str(e.device_type()).endswith("CUDA")
+        and "annotation" not in kind(e))
+    busy = [(a, b) for a, b in busy if b > a]
+    gaps, end = [], w0
+    for a, b in busy:
+        if a > end:
+            gaps.append((end, a))
+        end = max(end, b)
+    if w1 > end:
+        gaps.append((end, w1))
+    return gaps
+
+
+@pytest.mark.cuda
+def test_spans_follow_the_profiler_with_cuda_activity(dev, tmp_path):
+    """The stored spans against the profiler's own events for them, CUDA
+    activity on: 95% within 50 us, the median within 10 us
+    (tests/test_torch_telemetry.py on the CPU)."""
+    _traced_plummer(dev, tmp_path, "warm", steps=21, annotate=True)
+    prof, spans = _traced_plummer(dev, tmp_path, "run", steps=21,
+                                  annotate=True)
+    names = {s[0] for s in spans}
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.name() in names
+                     and str(e.device_type()).endswith("CPU")),
+                    key=lambda e: e.start_ns())
+    assert [e.name() for e in events] == [s[0] for s in spans]
+    late = np.asarray([(s[1] - e.start_ns(),
+                        s[2] - e.start_ns() - e.duration_ns())
+                       for s, e in zip(spans, events)])
+    assert np.mean(np.abs(late) < 50_000, 0).min() >= 0.95, late
+    assert np.median(np.abs(late), 0).max() < 10_000, late
+
+
+@pytest.mark.cuda
+def test_spans_cover_the_idle_time_of_a_traced_run(dev, tmp_path):
+    """At least 90% of the device's idle time in a traced 65,536-body run
+    falls under some span of the program, which stays out of the
+    profiler's events (the device's included) outside ``annotating()``."""
+    _traced_plummer(dev, tmp_path, "warm", steps=21)
+    prof, spans = _traced_plummer(dev, tmp_path, "run")
+    names = {s[0] for s in spans}
+    assert not [e for e in prof.profiler.kineto_results.events()
+                if e.name() in names]
+    gaps = _idle_gaps(prof)
+    total = sum(b - a for a, b in gaps)
+    # the outermost spans follow one another: their overlaps with the gaps
+    # add up to the idle time under some span
+    under = sum(max(0, min(b, s[2]) - max(a, s[1]))
+                for s in spans if s[3] < 0 for a, b in gaps)
+    assert total > 0
+    assert under >= 0.9 * total, (under, total)
