@@ -747,7 +747,7 @@ def phase_e(dev):
         state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, 0.0,
                            sort_fn=solver.sort_key if presort else None,
                            device=dev)
-        finals[impl] = run_chunk(step_fn, state, 10, presort=presort)
+        finals[impl] = run_chunk(step_fn, state, 10)
     for field in ("pos", "vel"):
         a = getattr(finals["cuda"], field)
         b = getattr(finals["torch"], field)

@@ -107,14 +107,14 @@ def measure(device="cuda", windows=WINDOWS, steps=STEPS,
     field, fx = run_copies(external_potential, force_extra, m, device, dtype)
     accel_fn = make_accel_fn(solver, solver.mass, field, 1, fx)
     step_fn = make_kdk_step(accel_fn, dt, t0)
-    presort = solver.spatial_sort_active
-    every = getattr(solver, "presort_interval", None)  # as run_nbody
+    # as run_nbody: the first force's slab order from the initial
+    # positions, each step's from its drifted positions (make_kdk_step)
     state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, t0,
                        dtype=dtype, force_extra=fx,
-                       sort_fn=solver.sort_key if presort else None,
+                       sort_fn=(solver.sort_key if solver.spatial_sort_active
+                                else None),
                        device=device)
-    state = run_chunk(step_fn, state, warmup, presort=presort,
-                      presort_every=every)
+    state = run_chunk(step_fn, state, warmup)
     warm = state
 
     def energy(s):
@@ -126,8 +126,7 @@ def measure(device="cuda", windows=WINDOWS, steps=STEPS,
     for _ in range(windows):
         torch.cuda.synchronize(device)
         start = time.perf_counter()
-        state = run_chunk(step_fn, state, steps, presort=presort,
-                          presort_every=every)
+        state = run_chunk(step_fn, state, steps)
         torch.cuda.synchronize(device)
         times.append((time.perf_counter() - start) / steps)
     if not torch.isfinite(state.pos).all():
@@ -148,8 +147,7 @@ def measure(device="cuda", windows=WINDOWS, steps=STEPS,
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            state = run_chunk(step_fn, state, profile_steps,
-                              presort=presort, presort_every=every)
+            state = run_chunk(step_fn, state, profile_steps)
             torch.cuda.synchronize(device)
         out["profile"] = prof
     return out

@@ -40,9 +40,11 @@ class IntegratorState:
     ext_acc: torch.Tensor   # cached external-potential acceleration
     extra_state: Any        # ForceExtra state (anything, or ())
     step: int               # global step counter (host int: no device sync)
-    # (N,) slab order for the sorted CUDA path, refreshed by run_chunk
-    # (presort / presort_every); None when unused.  A stale order is exact
-    # by construction (see ops/cuda_direct.py).
+    # (N,) slab order for the sorted CUDA path: that of ``pos`` where the
+    # solver asks for an order every step (the KDK step takes it after its
+    # drift), else the last one run_chunk took (presort / presort_every);
+    # None when unused.  A stale order is exact by construction (see
+    # ops/cuda_direct.py).
     sort_order: torch.Tensor | None = None
 
 
@@ -83,7 +85,11 @@ def make_accel_fn(
     refresh_ext=False, order=None) -> (acc, ext_acc, extra_state)``.
     ``external_potential`` is duck-typed: ``force(pos, t)`` returning an
     (N, 3) tensor or array.  It is re-evaluated when
-    ``step % external_update_interval == 0`` (or ``refresh_ext``)."""
+    ``step % external_update_interval == 0`` (or ``refresh_ext``).
+
+    ``accel.sort_key`` is the solver's ``sort_key`` where the solver asks
+    for a fresh slab order every step (``presort_interval == 1``), else
+    None: ``make_kdk_step`` then takes the order itself."""
     k = int(external_update_interval)
 
     def accel(pos, vel, t, step, ext_acc, extra_state, refresh_ext=False,
@@ -110,6 +116,9 @@ def make_accel_fn(
                                         device=acc.device)
         return acc, ext_acc, extra_state
 
+    accel.sort_key = (solver.sort_key
+                      if getattr(solver, "presort_interval", None) == 1
+                      else None)
     return accel
 
 
@@ -117,7 +126,15 @@ def make_kdk_step(accel_fn, dt: float, t0: float, compensated: bool = True):
     """One symplectic kick-drift-kick step: ``step_fn(state) -> state``.
 
     ``t`` is reconstructed as ``t0 + step*dt`` from the integer step
-    counter (never accumulated in low precision)."""
+    counter (never accumulated in low precision).
+
+    Where ``accel_fn.sort_key`` is set (``make_accel_fn``: the solver asks
+    for an order every step) the step takes the slab order from its
+    drifted positions, just before the force, and carries it in the
+    state: the force's band windows are then as narrow as a fresh order
+    makes them, where an order taken before the drift widens them by the
+    drift.  Otherwise the force runs on the state's order."""
+    sort_key = getattr(accel_fn, "sort_key", None)
 
     def step_fn(state: IntegratorState) -> IntegratorState:
         half = 0.5 * dt
@@ -129,15 +146,19 @@ def make_kdk_step(accel_fn, dt: float, t0: float, compensated: bool = True):
             pos, pos_c = state.pos + vel * dt, state.pos_c
         step = state.step + 1
         t = t0 + step * dt
+        order = state.sort_order
+        if sort_key is not None:
+            with span("dispatch.sort", step):
+                order = sort_key(pos)
         acc, ext_acc, extra_state = accel_fn(
             pos, vel, t, step, state.ext_acc, state.extra_state,
-            order=state.sort_order)
+            order=order)
         if compensated:
             vel, vel_c = _comp_add(vel, vel_c, acc * half)
         else:
             vel = vel + acc * half
         return IntegratorState(pos, vel, pos_c, vel_c, acc, ext_acc,
-                               extra_state, step, state.sort_order)
+                               extra_state, step, order)
 
     return step_fn
 
@@ -149,7 +170,8 @@ def run_chunk(step_fn, state: IntegratorState, n_steps: int,
     ``presort=True`` refreshes the state's slab order from the current
     positions before the first step (one argsort per chunk instead of one
     per force call); ``presort_every=k`` also refreshes it every ``k``
-    steps inside the chunk."""
+    steps inside the chunk.  A step that takes its own order
+    (``make_kdk_step`` with ``accel_fn.sort_key``) needs neither."""
     for i in range(n_steps):
         if (presort and i == 0) or (presort_every and i
                                     and i % presort_every == 0):

@@ -264,12 +264,14 @@ class DirectGravity:
 
     @property
     def presort_interval(self):
-        """In-chunk order refresh cadence for ``run_chunk``: every step on
-        the sorted path.  A stale order stays exact (the band windows
-        widen until the single-pass fallback takes over), but at the
-        N = 65,536 bench case an order ~10 steps old already forces the
-        fallback, while a GPU argsort of the positions costs far less
-        than the two-pass saving (PERF.md)."""
+        """The slab order's refresh cadence: every step on the sorted
+        path, where ``make_kdk_step`` takes it from the drifted positions
+        just before the force.  A stale order stays exact (the band
+        windows widen until the single-pass fallback takes over), but at
+        the N = 65,536 bench case an order ~10 steps old already forces
+        the fallback, and at the MW + LMC satellite's 1M an order one
+        drift old does, while a GPU argsort of the positions costs far
+        less than the two-pass saving (PERF.md)."""
         return 1 if self.spatial_sort_active else None
 
     # -- backend dispatch ---------------------------------------------------

@@ -454,10 +454,6 @@ def run_nbody(
         step_fn = make_kdk_step(accel_fn, dt, time_start,
                                 compensated=(precision == "float32_kahan"))
 
-        # slab-order reuse: the order is carried in the state and refreshed
-        # every presort_every steps, not per force call
-        presort = solver.spatial_sort_active
-        presort_every = getattr(solver, "presort_interval", None)
         xv_init = xv
         if pad:
             # ghost rows at the last real particle's position (inside the last
@@ -469,11 +465,15 @@ def run_nbody(
         # a resume restores the compensations and the extra force's state its
         # restart file holds, so that it continues the run it stopped
         comp, extra0 = _resumed_state(saved_state, pad, device)
+        # the slab order: the first force's from the initial positions, then
+        # each step's from its drifted positions (make_kdk_step), carried in
+        # the state
         state = init_state(
             xv_init[:, :3], xv_init[:, 3:], accel_fn, mass_dev, time_start,
             start_step=start_step, dt=dt, dtype=state_dtype, force_extra=fx,
-            sort_fn=solver.sort_key if presort else None, device=device,
-            comp=comp, extra_state=extra0 if fx is not None else None,
+            sort_fn=solver.sort_key if solver.spatial_sort_active else None,
+            device=device, comp=comp,
+            extra_state=extra0 if fx is not None else None,
         )
 
         e_ref = None
@@ -570,14 +570,11 @@ def run_nbody(
                         with _ChunkWatchdog(
                                 step_timeout_s * s + _CHUNK_GRACE_S,
                                 emergency_restart):
-                            state = run_chunk(step_fn, state, s,
-                                              presort=presort,
-                                              presort_every=presort_every)
+                            state = run_chunk(step_fn, state, s)
                             with span("integrator.sync"):
                                 _synchronize(device)
                     else:
-                        state = run_chunk(step_fn, state, s, presort=presort,
-                                          presort_every=presort_every)
+                        state = run_chunk(step_fn, state, s)
                 done += s
                 if step_timeout_s:
                     with span("entry.boundary", step=current + done), \

@@ -28,7 +28,8 @@ dot):
   (a boundary's fetch, NaN check, snapshot and restart; the final fetch);
 * ``integrator.chunk`` (one ``run_chunk``), ``integrator.sync`` (the
   watchdog's synchronise after a chunk);
-* ``dispatch.sort`` (the slab order's refresh), ``dispatch.gravity`` (one
+* ``dispatch.sort`` (the slab order, taken in the KDK step from its
+  drifted positions just before the force), ``dispatch.gravity`` (one
   ``solver.accel`` or ``solver.potential`` call), ``dispatch.sync`` (the
   sorted path's branch read, ``cuda_direct._self_sorted``);
 * ``field.force`` (the external field's ``force`` on its refresh steps);

@@ -33,7 +33,9 @@ card within chip_smoke.RENDER_TOL of the same render on the CPU, holding
 the frame's mass within chip_smoke.MASS_TOL; the native host library's
 kNN on the card machine within chip_smoke.KNN_TOL of cKDTree.  The
 scale drivers: the flagship stopped and resumed within 1e-6 of max of an
-unbroken run, gate1m's |dE/E| < 1e-4.  The program's spans: 95% of their
+unbroken run, gate1m's |dE/E| < 1e-4.  The MW + LMC satellite at
+N = 262,145 on the two passes in every evaluation, its force within 3e-6
+of the fp64 oracle.  The program's spans: 95% of their
 stored times within 50 us of the profiler's events with CUDA activity on,
 the median within 10 us, and at least 90% of a traced 65,536-body run's device idle time under one.
 """
@@ -334,6 +336,51 @@ def test_cuda_impl_matches_torch_impl_over_kdk_steps(dev):
     for field in ("pos", "vel"):
         assert _rel(getattr(finals["cuda"], field),
                     getattr(finals["torch"], field)) < 1e-6
+
+
+@pytest.mark.cuda
+def test_satellite_steps_take_the_two_pass_path(dev):
+    """The flagship's satellite (its three components, Eddington DF) at
+    N = 262,145 in the MW + LMC field with friction, dt = 5e-4: the KDK
+    step takes its slab order from the drifted positions, so every
+    evaluation takes the two passes, where the order one drift old
+    overflows the band; the force on the final state's order is within
+    3e-6 of the float64 sum at 4,096 targets."""
+    from nbody_streams_tpu_torch.benchmarks import flagship2m as fl
+    from nbody_streams_tpu_torch.friction import make_df_force_extra
+    from nbody_streams_tpu_torch.potentials.mwlmc import (
+        load_mw_lmc_potential)
+    from nbody_streams_tpu_torch.run import run_copies
+    from nbody_streams_tpu_torch.species import _build_particle_arrays
+
+    n, steps, dt, t0 = 262_145, 4, 5e-4, -0.1
+    xv, species = fl.build_ics(n, seed=7, device=dev)
+    mass, soft = _build_particle_arrays(species)
+    field = load_mw_lmc_potential(device=dev)[0]
+    fx = make_df_force_extra(field, M_sat=float(mass.sum()), G=G,
+                             t_start=t0, t_end=t0 + steps * dt,
+                             coulomb_mode="variable", update_interval=10)
+    field, fx = run_copies(field, fx, mass, dev, torch.float32)
+    solver = DirectGravity(mass, soft, G=G, kernel="spline", device=dev)
+    accel_fn = make_accel_fn(solver, solver.mass, field, 1, fx)
+    step_fn = make_kdk_step(accel_fn, dt, t0)
+    before = dict(cd.BRANCHES)
+    state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, t0,
+                       force_extra=fx, sort_fn=solver.sort_key, device=dev)
+    prev = run_chunk(step_fn, state, steps - 1)
+    last = step_fn(prev)
+    got = solver.accel(last.pos, order=last.sort_order)
+    assert cd.BRANCHES["single_pass"] == before["single_pass"]
+    assert cd.BRANCHES["two_pass"] == before["two_pass"] + steps + 2
+    h = solver.softening.max()
+    _, stale, rows = cd.band_window(last.pos[prev.sort_order][:, 0], h)
+    _, own, _ = cd.band_window(last.pos[last.sort_order][:, 0], h)
+    assert int(own) <= cd.band_rows(rows) < int(stale)
+    idx = np.random.default_rng(0).choice(n, 4096, replace=False)
+    want = chip_smoke.direct64_at(last.pos, G * mass, soft, idx, dev,
+                                  "spline", "acc", chunk=(1024, 131072))
+    rel = np.abs(got[idx].double().cpu().numpy() - want).max()
+    assert rel / np.abs(want).max() < 3e-6
 
 
 @pytest.mark.cuda

@@ -141,6 +141,96 @@ def test_presort_per_chunk_matches_sort_per_call():
                     getattr(per_call, field)) < 1e-6, field
 
 
+class _PerCallSort(_SortedCuda):
+    """The same sorted path, with the order left to every force call."""
+
+    presort_interval = None
+
+
+def _sorted_runs(pos, vel, soft, dt, steps):
+    """(per-call sort, order taken after each drift) final states."""
+    n = pos.shape[0]
+    out = []
+    for cls in (_PerCallSort, _SortedCuda):
+        solver = cls(np.full(n, 1e9 / n), np.full(n, soft), device="cpu")
+        accel_fn = ti.make_accel_fn(solver, solver.mass)
+        sort_fn = solver.sort_key if cls is _SortedCuda else None
+        s0 = ti.init_state(pos, vel, accel_fn, solver.mass, 0.0,
+                           sort_fn=sort_fn, device="cpu")
+        out.append(ti.run_chunk(ti.make_kdk_step(accel_fn, dt, 0.0), s0,
+                                steps))
+    return out
+
+
+def test_order_after_the_drift_equals_sort_per_call_bitwise():
+    """The KDK step takes its slab order from the drifted positions: the
+    order a force call would sort for itself, so the two runs agree bit
+    for bit, and the state carries the order of its own positions."""
+    rng = np.random.default_rng(3)
+    n = 3072
+    pos = rng.normal(0, 1, (n, 3))
+    vel = rng.normal(0, 10.0, (n, 3))
+    before = dict(cd.BRANCHES)
+    per_call, fresh = _sorted_runs(pos, vel, 0.02, DT, 4)
+    assert cd.BRANCHES["two_pass"] == before["two_pass"] + 10
+    assert per_call.sort_order is None
+    assert torch.equal(fresh.sort_order, cd.slab_sort_key(fresh.pos))
+    for field in ("pos", "vel"):
+        assert torch.equal(getattr(fresh, field), getattr(per_call, field))
+
+
+def test_order_after_the_drift_keeps_a_hot_cluster_on_two_passes():
+    """A compact cluster with a high velocity dispersion and a large dt:
+    on the order taken before the drift the band window outgrows the
+    band, so such a step would fall back to the single pass; the step's
+    own order of its drifted positions keeps every evaluation on the two
+    passes."""
+    rng = np.random.default_rng(7)
+    n, dt, soft, steps = 3072, 1e-3, 0.005, 4
+    pos = rng.normal(0, 0.1, (n, 3))
+    vel = rng.normal(0, 60.0, (n, 3))
+    solver = _SortedCuda(np.full(n, 1e9 / n), np.full(n, soft),
+                         device="cpu")
+    accel_fn = ti.make_accel_fn(solver, solver.mass)
+    step_fn = ti.make_kdk_step(accel_fn, dt, 0.0)
+    s0 = ti.init_state(pos, vel, accel_fn, solver.mass, 0.0,
+                       sort_fn=solver.sort_key, device="cpu")
+    before = dict(cd.BRANCHES)
+    s1 = step_fn(s0)
+    h = solver.softening.max()
+    _, stale, rows = cd.band_window(s1.pos[s0.sort_order][:, 0], h, 64, 128)
+    _, own, _ = cd.band_window(s1.pos[s1.sort_order][:, 0], h, 64, 128)
+    assert int(own) <= cd.band_rows(rows) < int(stale)
+    ti.run_chunk(step_fn, s1, steps - 1)
+    assert cd.BRANCHES["single_pass"] == before["single_pass"]
+    assert cd.BRANCHES["two_pass"] == before["two_pass"] + steps
+
+
+def test_saved_order_sorts_the_saved_positions_and_resumes():
+    """The state a restart saves (``to_numpy_state``) holds a permutation
+    that sorts its own positions along x, and a run resumed from it
+    continues bit for bit."""
+    rng = np.random.default_rng(5)
+    n = 3072
+    solver = _SortedCuda(np.full(n, 1e9 / n), np.full(n, 0.02),
+                         device="cpu")
+    accel_fn = ti.make_accel_fn(solver, solver.mass)
+    step_fn = ti.make_kdk_step(accel_fn, DT, 0.0)
+    s0 = ti.init_state(rng.normal(0, 1, (n, 3)), rng.normal(0, 10.0, (n, 3)),
+                       accel_fn, solver.mass, 0.0, sort_fn=solver.sort_key,
+                       device="cpu")
+    s3 = ti.run_chunk(step_fn, s0, 3)
+    saved = ti.to_numpy_state(s3)
+    order = saved["sort_order"]
+    assert np.array_equal(np.sort(order), np.arange(n))
+    assert np.all(np.diff(saved["pos"][order, 0]) >= 0)
+    whole = ti.run_chunk(step_fn, s3, 2)
+    resumed = ti.run_chunk(step_fn, ti.from_jax_state(saved, device="cpu"),
+                           2)
+    for field in ("pos", "vel", "sort_order"):
+        assert torch.equal(getattr(resumed, field), getattr(whole, field))
+
+
 def test_run_chunk_refreshes_order_every_k_steps():
     n = 64
     solver = DirectGravity(np.full(n, 1.0), 0.05, impl="torch",
