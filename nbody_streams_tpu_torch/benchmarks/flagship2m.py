@@ -222,6 +222,9 @@ def run(n_total, steps, device=None, out=OUT, save_snapshots=True,
     finally:
         _record_attempt(out, start_step, time.perf_counter() - t0)
     took = {k: v - branches[k] for k, v in cuda_direct.BRANCHES.items()}
+    window = (f"{took['window_rows'] / took['band_rows']:.3f}"
+              if took["band_rows"] else "no sorted-path call")
+    took = {k: took[k] for k in ("two_pass", "single_pass")}
     peak = (f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
             if device.type == "cuda" else "not measured (CPU)")
     tot = summary(out)
@@ -234,7 +237,8 @@ def run(n_total, steps, device=None, out=OUT, save_snapshots=True,
           f"({wall / max(tot['steps'], 1):.1f} s/step, "
           f"{float(n_total) ** 2 * tot['steps'] / wall / 1e9:.1f} Gint/s "
           f"sustained incl. I/O); peak device memory of this attempt "
-          f"{peak}; sorted-path branches of this attempt {took}",
+          f"{peak}; sorted-path branches of this attempt {took}; band "
+          f"window over band width {window}",
           flush=True)
     sat = satellite(result, species)
     print(f"satellite at step {done}: r_CoM {sat['r_com']:.2f} kpc, v_CoM "

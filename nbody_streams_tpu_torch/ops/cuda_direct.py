@@ -42,6 +42,9 @@ tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
 single pass and the two-set calls), ``band``, ``moment`` (kernel M as the
 base pass), ``moment_2set`` (kernel M's two-set form, the ring's far
 tiles) and ``fast`` (kernel F as the base pass, acc or pot).
+``BRANCHES`` counts the sorted path's calls by branch (``two_pass``,
+``single_pass``) and sums their widest band window and band width in
+source rows (``window_rows``, ``band_rows``).
 
 The host side mirrors the TPU path: for the spline at N >= 16384 the
 particles are sorted along x (``slab_sort_key``), a band window of source
@@ -94,9 +97,14 @@ MIN_SPLIT_TILES = 8
 #: Kernel launches, counted by the wrappers where they launch (plain ints).
 LAUNCHES = {"base": 0, "single": 0, "band": 0, "moment": 0,
             "moment_2set": 0, "fast": 0}
-#: Which branch the sorted path picked (two-pass or single-pass fallback);
-#: counted where it picks, so its launches are in LAUNCHES.
-BRANCHES = {"two_pass": 0, "single_pass": 0}
+#: Which branch the sorted path picked (``two_pass`` or the ``single_pass``
+#: fallback), counted where it picks, so its launches are in LAUNCHES; and
+#: beside them two running sums over the same calls: ``window_rows``, each
+#: call's widest band window in source rows (the width the branch read
+#: brings to the host), and ``band_rows``, each call's band width ``nb``.
+#: Their ratio says how far the windows outgrow the band.
+BRANCHES = {"two_pass": 0, "single_pass": 0, "window_rows": 0,
+            "band_rows": 0}
 
 _MODES = {"acc": 0, "pot": 1}
 
@@ -732,6 +740,8 @@ def _self_sorted(pos, gmass, soft, kind, kahan, mode, eps2, tm=None,
     # comparison is read on the host: one device sync per call.
     with span("dispatch.sync"):
         width = int(max_width)
+    BRANCHES["window_rows"] += width
+    BRANCHES["band_rows"] += nb
     if width <= nb:
         BRANCHES["two_pass"] += 1
         start = first.clamp(0, rows - nb).to(torch.int32).contiguous()

@@ -35,7 +35,9 @@ kNN on the card machine within chip_smoke.KNN_TOL of cKDTree.  The
 scale drivers: the flagship stopped and resumed within 1e-6 of max of an
 unbroken run, gate1m's |dE/E| < 1e-4.  The MW + LMC satellite at
 N = 262,145 on the two passes in every evaluation, its force within 3e-6
-of the fp64 oracle.  The program's spans: 95% of their
+of the fp64 oracle; the stream deployment's King cluster at N = 262,144
+in McMillan17 on the single pass in every evaluation, its band windows
+wider than the band, its force within 3e-6 of the fp64 oracle.  The program's spans: 95% of their
 stored times within 50 us of the profiler's events with CUDA activity on,
 the median within 10 us, and at least 90% of a traced 65,536-body run's device idle time under one.
 """
@@ -376,6 +378,45 @@ def test_satellite_steps_take_the_two_pass_path(dev):
     _, stale, rows = cd.band_window(last.pos[prev.sort_order][:, 0], h)
     _, own, _ = cd.band_window(last.pos[last.sort_order][:, 0], h)
     assert int(own) <= cd.band_rows(rows) < int(stale)
+    idx = np.random.default_rng(0).choice(n, 4096, replace=False)
+    want = chip_smoke.direct64_at(last.pos, G * mass, soft, idx, dev,
+                                  "spline", "acc", chunk=(1024, 131072))
+    rel = np.abs(got[idx].double().cpu().numpy() - want).max()
+    assert rel / np.abs(want).max() < 3e-6
+
+
+@pytest.mark.cuda
+def test_king_cluster_steps_take_the_single_pass(dev):
+    """The stream deployment's King cluster (W0 = 5, r_c = 0.02 kpc,
+    5e6 Msun, h = 0.004 kpc) at N = 262,144 in the static McMillan17
+    field, dt = 5e-4, 3 steps: its core outgrows the band, so every
+    evaluation takes the single pass and the band windows sum to more
+    rows than the band; the final force on the state's own order is
+    within 3e-6 of the float64 sum at 4,096 targets."""
+    from nbody_streams_tpu_torch.fast_sims.king import sample_king
+    from nbody_streams_tpu_torch.potentials import make_potential
+    from nbody_streams_tpu_torch.potentials.mwlmc import mw_lmc_data_dir
+    from nbody_streams_tpu_torch.run import run_copies
+
+    n, steps, dt, t0, h = 262_144, 3, 5e-4, 0.0, 0.004
+    xv, m = sample_king(n, mass=5e6, r_core=0.02, W0=5.0, seed=2)
+    xv[:, :3] += np.array([14.0, 0.0, 6.0])
+    xv[:, 3:] += np.array([30.0, 150.0, -10.0])
+    mass, soft = torch.as_tensor(m), torch.full((n,), h, dtype=torch.float64)
+    field = make_potential(
+        file=mw_lmc_data_dir() / "McMillan17_streams.ini", device=dev)
+    field, _ = run_copies(field, None, mass, dev, torch.float32)
+    solver = DirectGravity(mass, soft, G=G, kernel="spline", device=dev)
+    accel_fn = make_accel_fn(solver, solver.mass, field, 1)
+    step_fn = make_kdk_step(accel_fn, dt, t0)
+    before = dict(cd.BRANCHES)
+    state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, t0,
+                       sort_fn=solver.sort_key, device=dev)
+    last = run_chunk(step_fn, state, steps)
+    got = solver.accel(last.pos, order=last.sort_order)
+    took = {k: cd.BRANCHES[k] - before[k] for k in before}
+    assert took["single_pass"] == steps + 2 and took["two_pass"] == 0
+    assert took["window_rows"] > took["band_rows"] > 0
     idx = np.random.default_rng(0).choice(n, 4096, replace=False)
     want = chip_smoke.direct64_at(last.pos, G * mass, soft, idx, dev,
                                   "spline", "acc", chunk=(1024, 131072))
