@@ -9,6 +9,15 @@ device step counter, the port's step counter is a Python int and the choice
 is a host ``if``; the step's time ``t`` is a Python float, and so is the
 stored ``t_prev``.  Nothing in ``__call__`` reads a device value back.
 
+On the card the one-point work of a call (the density at the centre,
+sigma(r) and eq. 8.13: ~21,000 small launches in the MW+LMC field) is
+captured as one CUDA graph at a run's second call and replayed at every
+later one, where the JAX package runs the same ops as one jitted program.
+Its time enters the graph as a 0-dim float64 tensor, so the field's
+trajectory tables take their batched, device-side path; a potential that
+reads a device value back cannot be captured, and its run stays eager
+(``GRAPHS`` counts both).  On the CPU every call is eager.
+
 Physics (as the JAX package):
 
 * a_DF = -4 pi G^2 M_sat rho ln(Lambda)/v^2 [erf(X) - 2X/sqrt(pi)
@@ -33,6 +42,7 @@ from __future__ import annotations
 
 import copy
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -43,6 +53,7 @@ from .telemetry import span
 from .utils.interp import spline_coeffs
 
 __all__ = [
+    "GRAPHS",
     "ChandrasekharFriction",
     "make_df_force_extra",
     "chandrasekhar_accel",
@@ -51,6 +62,12 @@ __all__ = [
     "shrinking_sphere_com",
     "bound_center_phi",
 ]
+
+
+#: the centre term's CUDA graphs in this process: ``captured`` (one a run on
+#: the card), ``replayed`` (one a friction call after that), ``fallback``
+#: (captures that raised: those runs stay eager)
+GRAPHS = {"captured": 0, "replayed": 0, "fallback": 0}
 
 
 def _np(x):
@@ -347,6 +364,47 @@ def chandrasekhar_friction(r_com, v_com, M_sat, pot, sigma_func, t,
 # ForceExtra
 # ---------------------------------------------------------------------------
 
+class _CentreGraph:
+    """``fn(r_com, v_com, m_eff, t) -> a_df`` captured as one CUDA graph.
+
+    The capture runs on a side stream that waits for the caller's, so the
+    host records it while the device works through what is queued.  Its
+    inputs are static copies: ``t`` a float64 0-dim tensor, ``m_eff`` a
+    tensor where it is one and else a constant of the graph.  A call fills
+    them, replays on the current stream and returns a copy of the output,
+    so nothing the caller keeps aliases the graph's memory.  Capture
+    raises where ``fn`` reads a device value back to the host."""
+
+    def __init__(self, fn, r_com, v_com, m_eff, t):
+        dev = r_com.device
+        self.r_com, self.v_com = r_com.clone(), v_com.clone()
+        self.mass_input = isinstance(m_eff, torch.Tensor)
+        self.m_eff = m_eff.clone() if self.mass_input else m_eff
+        self.t = torch.full((), float(t), dtype=torch.float64, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        try:
+            with torch.cuda.stream(side):
+                self.graph.capture_begin()
+                try:
+                    self.out = fn(self.r_com, self.v_com, self.m_eff, self.t)
+                finally:
+                    self.graph.capture_end()
+        finally:
+            main.wait_stream(side)
+
+    def __call__(self, r_com, v_com, m_eff, t):
+        self.r_com.copy_(r_com)
+        self.v_com.copy_(v_com)
+        if self.mass_input:
+            self.m_eff.copy_(m_eff)
+        self.t.fill_(float(t))
+        self.graph.replay()
+        return self.out.clone()
+
+
 class ChandrasekharFriction(ForceExtra):
     """The DF ``ForceExtra`` with the centre carried in its state.
 
@@ -395,10 +453,20 @@ class ChandrasekharFriction(ForceExtra):
         self.sigma = compute_sigma_r(pot, t_eval=self.t_mid,
                                      grid_r=sigma_grid_r,
                                      method=sigma_method)
+        self._reset_graph()
+
+    def _reset_graph(self):
+        # None: not captured yet (the first call on the card is eager, the
+        # second captures); False: capture raised, eager for good
+        self._graph = None
+        self._warm = False
 
     def to(self, device=None, dtype=None):
-        """A copy on ``device`` with the potential in ``dtype``."""
+        """A copy on ``device`` with the potential in ``dtype`` (and a
+        CUDA graph of its own, captured at its second call on the
+        card)."""
         out = copy.copy(self)
+        out._reset_graph()
         if isinstance(self.pot, torch.nn.Module):
             out.pot = copy.deepcopy(self.pot).to(device=device, dtype=dtype)
         if isinstance(self.sigma, _SplineSigma):
@@ -424,6 +492,41 @@ class ChandrasekharFriction(ForceExtra):
             state["bound"] = torch.ones(pos.shape[0], dtype=torch.bool,
                                         device=pos.device)
         return state
+
+    def _centre_term(self, r_com, v_com, m_eff, t):
+        """The one-point work of a call: the density at the centre,
+        sigma(r) and BT2008 eq. 8.13."""
+        r = torch.linalg.norm(r_com)
+        rho = self.pot.density(r_com, t=t)
+        sig = self.sigma(r, t=t)
+        return chandrasekhar_accel(
+            r_com, v_com, m_eff, rho, sig, t, G=self.G,
+            coulomb_mode=self.coulomb_mode,
+            fixed_ln_lambda=self.fixed_ln_lambda,
+            core_gamma=self.core_gamma, r_core=self.r_core)
+
+    def _centre_accel(self, r_com, v_com, m_eff, t):
+        """``_centre_term``, from its CUDA graph where the state is on the
+        card, from the second call on (see the module)."""
+        graph = self._graph
+        if graph is None and self._warm:
+            try:
+                graph = _CentreGraph(self._centre_term, r_com, v_com, m_eff,
+                                     t)
+                GRAPHS["captured"] += 1
+            except Exception as exc:    # any failure to capture: eager
+                warnings.warn(f"friction: the centre term could not be "
+                              f"captured as a CUDA graph ({exc!r}); this "
+                              f"run stays eager", RuntimeWarning)
+                graph = False
+                GRAPHS["fallback"] += 1
+            self._graph = graph
+        if graph and graph.mass_input == isinstance(m_eff, torch.Tensor):
+            GRAPHS["replayed"] += 1
+            with span("friction.replay"):
+                return graph(r_com, v_com, m_eff, t)
+        self._warm = r_com.is_cuda
+        return self._centre_term(r_com, v_com, m_eff, t)
 
     def __call__(self, state, pos, vel, mass, t, phi=None, step=0):
         dt = float(t) - state["t_prev"]
@@ -452,15 +555,7 @@ class ChandrasekharFriction(ForceExtra):
             m_eff = self.M_sat
 
         with span("friction.density"):
-            r = torch.linalg.norm(r_com)
-            rho = self.pot.density(r_com, t=t)
-            sig = self.sigma(r, t=t)
-        a_df = chandrasekhar_accel(
-            r_com, v_com, m_eff, rho, sig, t, G=self.G,
-            coulomb_mode=self.coulomb_mode,
-            fixed_ln_lambda=self.fixed_ln_lambda,
-            core_gamma=self.core_gamma, r_core=self.r_core,
-        ).to(pos.dtype)
+            a_df = self._centre_accel(r_com, v_com, m_eff, t).to(pos.dtype)
 
         zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
         if use_phi:

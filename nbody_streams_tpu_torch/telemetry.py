@@ -35,7 +35,9 @@ dot):
 * ``field.force`` (the external field's ``force`` on its refresh steps);
 * ``friction.step`` (the extra force's call), ``friction.centre`` (the
   friction's centre on its refresh steps), ``friction.density`` (its
-  density and dispersion at the centre).
+  density, dispersion and acceleration at the centre), inside it
+  ``friction.replay`` (one replay of the CUDA graph that the friction
+  captures of those on the card).
 
 A span named ``<layer>.sync`` holds one call that blocks the host on the
 device.  The store keeps at most ``CAP`` spans and counts those it drops

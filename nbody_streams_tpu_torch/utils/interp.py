@@ -10,7 +10,9 @@ A Python-number time (the integrator's ``t``) selects its interval on the
 host, from a float64 copy of the breakpoints: the device sees only the
 slice ``c[:, k]`` and the host offset, so no value crosses back to the host
 and nothing synchronises.  A tensor time takes the batched path
-(``searchsorted`` on the device), as the JAX package does for every call.
+(``searchsorted`` on the device), as the JAX package does for every call;
+a 0-dim one (the friction's CUDA graph passes its time so) reads nothing
+back either.
 """
 from __future__ import annotations
 
@@ -75,6 +77,11 @@ class PPoly(nn.Module):
 
     def _batched(self, t, derivative: bool):
         t = torch.as_tensor(t, dtype=self.c.dtype, device=self.c.device)
+        if t.ndim == 0:
+            # indexing the tables with a 0-dim index tensor would read it
+            # back to the host: take the interval of a one-element batch
+            val = self._batched(t.reshape(1), derivative)
+            return val.reshape(val.shape[1:])
         tc = torch.clamp(t, self.x[0], self.x[-1])
         k = torch.clamp(torch.searchsorted(self.x, tc, right=True) - 1,
                         0, self.x.shape[0] - 2)

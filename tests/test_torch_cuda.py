@@ -25,7 +25,9 @@ pair, and the potential forms' hot loop has no self-mask test.  The
 defaults of the entry
 points land on the card; the SCF tier stays within chip_smoke.SCF_TOL of
 float64 with TF32 switched on; the friction term runs without a host
-sync, within chip_smoke.DF_TOL of float64.  The tree tier within 3e-6 of
+sync, within chip_smoke.DF_TOL of float64; its centre term replayed from
+a CUDA graph within 1e-6 of the eager term on the card, and eager where
+the field reads the host.  The tree tier within 3e-6 of
 the fp64 oracle; the spray window and an orbit, float32 on the card,
 within chip_smoke.SPRAY_TOL of float64 on the CPU; unbinding's
 self-potential within 2e-6 of its plain version.  The SPH render on the
@@ -736,6 +738,116 @@ def test_friction_on_the_card_matches_fp64_without_sync(dev):
     a32, a64 = st32["a_df"].double().cpu(), st64["a_df"]
     assert float((a32 - a64).norm() / a64.norm()) < chip_smoke.DF_TOL
     assert torch.equal(st32["bound"].cpu(), st64["bound"])
+
+
+def _satellite_friction(fx, where, dtype, calls=25, t0=-0.02, dt=1e-3):
+    """``calls`` consecutive friction calls on a 4,096-body satellite at
+    (52, 0, 35) kpc, t from ``t0`` by ``dt`` (a refresh every 10 calls;
+    from -0.02 the LMC's table has a breakpoint at -0.015625): each
+    call's a_df in float64 on the CPU, the replays each call added, and
+    the last state."""
+    from nbody_streams_tpu_torch import friction as tf
+
+    rng = np.random.default_rng(3)
+    xv = np.concatenate([rng.normal(0.0, 1.0, (4096, 3)) + [52, 0, 35],
+                         rng.normal(0.0, 20.0, (4096, 3))
+                         + [-35, 95, -40]], 1)
+    r = np.linalg.norm(xv[:, :3] - [52, 0, 35], axis=1)
+    phi = -G * 2.25e9 / np.sqrt(r ** 2 + 1.0)
+    p, v, m, ph = (torch.tensor(a, dtype=dtype, device=where)
+                   for a in (xv[:, :3], xv[:, 3:],
+                             np.full(4096, 2.25e9 / 4096), phi))
+    st = fx.init_state(p, v, m, t0)
+    out, replays = [], []
+    for k in range(calls):
+        before = tf.GRAPHS["replayed"]
+        _, st = fx(st, p, v, m, t0 + (k + 1) * dt, phi=ph, step=k)
+        out.append(st["a_df"].double().cpu())
+        replays.append(tf.GRAPHS["replayed"] - before)
+    return torch.stack(out), replays, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("com_method", ["shrinking_sphere", "bound_phi"])
+def test_friction_graph_matches_eager_and_fp64(dev, monkeypatch,
+                                              com_method):
+    """The friction's centre term in the MW + LMC field, replayed from
+    its CUDA graph over 25 calls (three refreshes, a breakpoint of the
+    LMC's trajectory crossed): within 1e-6 of the eager term on the card
+    and within chip_smoke.DF_TOL of float64 on the CPU, a replay in every
+    call from the second on, and a carried state that shares no memory
+    with the graph."""
+    from nbody_streams_tpu_torch import friction as tf
+    from nbody_streams_tpu_torch.potentials.mwlmc import (
+        load_mw_lmc_potential)
+
+    field = load_mw_lmc_potential(device="cpu")[0]
+    kw = dict(M_sat=2.25e9, G=G, update_interval=10, t_start=-0.02,
+              t_end=0.0, com_method=com_method)
+    fx = tf.make_df_force_extra(field, **kw).to(dev, torch.float32)
+    graph, replays, st = _satellite_friction(fx, dev, torch.float32)
+    assert replays == [0] + [1] * 24
+    # the state carried on is the caller's: filling the graph's output
+    # leaves it as it was
+    kept = st["a_df"].clone()
+    fx._graph.out.fill_(float("nan"))
+    assert torch.equal(st["a_df"], kept)
+
+    class _NoCapture:
+        def __init__(self, *args):
+            raise RuntimeError("no capture")
+
+    monkeypatch.setattr(tf, "_CentreGraph", _NoCapture)
+    fallback = tf.GRAPHS["fallback"]
+    fx = tf.make_df_force_extra(field, **kw).to(dev, torch.float32)
+    with pytest.warns(RuntimeWarning, match="stays eager"):
+        eager, replays, _ = _satellite_friction(fx, dev, torch.float32)
+    assert replays == [0] * 25 and fx._graph is False
+    assert tf.GRAPHS["fallback"] == fallback + 1
+    fx = tf.make_df_force_extra(field, **kw).to("cpu", torch.float64)
+    want, _, _ = _satellite_friction(fx, "cpu", torch.float64)
+    assert float(((graph - eager).norm(dim=1)
+                  / eager.norm(dim=1)).max()) < 1e-6
+    assert float(((graph - want).norm(dim=1)
+                  / want.norm(dim=1)).max()) < chip_smoke.DF_TOL
+
+
+@pytest.mark.cuda
+def test_friction_graph_falls_back_where_the_field_reads_the_host(dev):
+    """A field whose potential reads its time back to the host cannot be
+    captured: the run counts a fallback and stays eager, with the eager
+    results of the same field that does not read, and the next run
+    captures again."""
+    from nbody_streams_tpu_torch import friction as tf
+    from nbody_streams_tpu_torch.potentials import NFWPotential
+
+    class HostReadNFW(NFWPotential):
+        def _phi(self, arr, t):
+            return super()._phi(arr, t) * (1.0 + 0.0 * float(t))
+
+    kw = dict(M_sat=2.25e9, G=G, update_interval=10, t_start=-0.02,
+              t_end=0.0)
+    before = dict(tf.GRAPHS)
+    fx = tf.make_df_force_extra(HostReadNFW(mass=1e12, scaleRadius=20.0),
+                                **kw).to(dev, torch.float32)
+    with pytest.warns(RuntimeWarning, match="stays eager"):
+        got, replays, _ = _satellite_friction(fx, dev, torch.float32,
+                                              calls=5)
+    assert fx._graph is False and replays == [0] * 5
+    assert tf.GRAPHS["fallback"] == before["fallback"] + 1
+    assert tf.GRAPHS["captured"] == before["captured"]
+    assert torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)
+    host = NFWPotential(mass=1e12, scaleRadius=20.0)
+    fx = tf.make_df_force_extra(host, **kw).to(dev, torch.float32)
+    graph, replays, _ = _satellite_friction(fx, dev, torch.float32, calls=5)
+    assert replays == [0, 1, 1, 1, 1]
+    fx = tf.make_df_force_extra(host, **kw).to("cpu", torch.float64)
+    want, _, _ = _satellite_friction(fx, "cpu", torch.float64, calls=5)
+    for a in (got, graph):
+        assert float(((a - want).norm(dim=1)
+                      / want.norm(dim=1)).max()) < chip_smoke.DF_TOL
+    assert float(((got - graph).norm(dim=1)
+                  / graph.norm(dim=1)).max()) < 1e-6
 
 
 @pytest.mark.cuda

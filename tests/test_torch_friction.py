@@ -336,6 +336,71 @@ def test_to_copies_the_potential_to_the_run():
     assert circ.to("cpu", torch.float32).sigma(r).dtype == torch.float32
 
 
+def _mwlmc_friction(**kw):
+    from nbody_streams_tpu_torch.potentials.mwlmc import (
+        load_mw_lmc_potential)
+
+    field = load_mw_lmc_potential(device="cpu")[0]
+    return tf.make_df_force_extra(field, M_sat=2.25e9, G=G, t_start=-0.02,
+                                  t_end=0.0, **kw).to("cpu", torch.float32)
+
+
+@pytest.mark.parametrize("com_method", ["shrinking_sphere", "bound_phi"])
+def test_cpu_friction_captures_nothing_and_is_the_eager_form(monkeypatch,
+                                                             com_method):
+    """On the CPU no call tries a CUDA graph, and 12 calls in the MW + LMC
+    field (refreshes at 0 and 10, the predictor between) give, bit for
+    bit, the density, sigma and eq. 8.13 at each call's centre."""
+    tried = []
+    monkeypatch.setattr(tf, "_CentreGraph",
+                        lambda *args: tried.append(args))
+    before = dict(tf.GRAPHS)
+    fx = _mwlmc_friction(com_method=com_method, update_interval=10)
+    xv, m = _satellite(256, 8, offset=(52.0, 0.0, 35.0),
+                       vbulk=(-35.0, 95.0, -40.0))
+    p, v, mm = (torch.tensor(a, dtype=torch.float32)
+                for a in (xv[:, :3], xv[:, 3:], m))
+    phi = -G * 5e9 / torch.sqrt(((p - p.mean(0)) ** 2).sum(1) + 0.25)
+    st = fx.init_state(p, v, mm, -0.02)
+    for k in range(12):
+        t = -0.02 + (k + 1) * 1e-3
+        _, st = fx(st, p, v, mm, t, phi=phi, step=k)
+        m_eff = (torch.clamp_min(st["m_bound"], 1e-4 * fx.M_sat)
+                 if com_method == "bound_phi" else fx.M_sat)
+        r = torch.linalg.norm(st["r_com"])
+        want = tf.chandrasekhar_accel(
+            st["r_com"], st["v_com"], m_eff,
+            fx.pot.density(st["r_com"], t=t), fx.sigma(r, t=t), t, G=G)
+        assert torch.equal(st["a_df"], want.to(torch.float32)), k
+    assert not tried and fx._graph is None and tf.GRAPHS == before
+
+
+@pytest.mark.parametrize("sigma_method", ["jeans", "local_circular"])
+def test_centre_term_with_a_device_time_reads_nothing_back(sigma_method):
+    """What the CUDA graph captures: the centre term in the MW + LMC field
+    with the time as a 0-dim float64 tensor reads no device value back
+    (no ``_local_scalar_dense``) and agrees with the host-time form within
+    float32 rounding, on either side of one of the LMC table's
+    breakpoints (-0.015625)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class NoHostRead(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            assert func is not torch.ops.aten._local_scalar_dense.default
+            return func(*args, **(kwargs or {}))
+
+    fx = _mwlmc_friction(sigma_method=sigma_method)
+    r = torch.tensor([52.0, 0.0, 35.0])
+    v = torch.tensor([-35.0, 95.0, -40.0])
+    for t in (-0.0157, -0.015625, -0.0155):
+        want = fx._centre_term(r, v, fx.M_sat, t)
+        with NoHostRead():
+            got = fx._centre_term(r, v, fx.M_sat,
+                                  torch.tensor(t, dtype=torch.float64))
+        assert got.shape == want.shape == (3,)
+        assert float((got - want).norm() / want.norm()) < 1e-6
+
+
 def test_run_simulation_df_routing(tmp_path, monkeypatch):
     """df_M_sat defaults to the total mass; df_* without friction and
     friction without a field are refused; DF without a card at the

@@ -108,6 +108,34 @@ def test_ppoly_matches_jax(kind, extrapolate):
     assert _rel(host, want) < 1e-12 and _rel(dhost, dwant) < 1e-12
 
 
+@pytest.mark.parametrize("kind", ["hermite", "pchip"])
+@pytest.mark.parametrize("extrapolate", ["clamp", "linear"])
+def test_ppoly_zero_dim_time_reads_nothing_back(kind, extrapolate):
+    """A 0-dim tensor time (the friction's CUDA graph passes its time so)
+    takes the batched path with the host form's shape and values, and
+    reads nothing back: on the meta device a read back raises."""
+    rng = np.random.default_rng(4)
+    times = np.sort(rng.uniform(-2.0, 2.0, 9))
+    vals, der = rng.normal(size=(9, 3)), rng.normal(size=(9, 3))
+
+    def make():
+        if kind == "pchip":
+            return tinterp.pchip_coeffs(times, vals[:, 0],
+                                        extrapolate=extrapolate)
+        return tinterp.hermite_coeffs(times, vals, der,
+                                      extrapolate=extrapolate)
+
+    tp = make()
+    for t in np.concatenate([[-3.0, 3.0], times, rng.uniform(-2, 2, 5)]):
+        for f in (tp, tp.derivative_at):
+            got, want = f(torch.tensor(t)), f(float(t))
+            assert got.shape == want.shape
+            assert _rel(got, want) < 1e-12
+    meta = make().to("meta")
+    t = torch.tensor(0.5, dtype=torch.float64, device="meta")
+    assert meta(t).shape == meta.derivative_at(t).shape == tp(0.5).shape
+
+
 # ---------------------------------------------------------------------------
 # analytic + base
 # ---------------------------------------------------------------------------
