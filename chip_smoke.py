@@ -743,9 +743,7 @@ def phase_e(dev):
         solver = DirectGravity(m, np.full(n, H), impl=impl, device=dev)
         accel_fn = make_accel_fn(solver, solver.mass)
         step_fn = make_kdk_step(accel_fn, DT, 0.0)
-        presort = solver.spatial_sort_active
         state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, 0.0,
-                           sort_fn=solver.sort_key if presort else None,
                            device=dev)
         finals[impl] = run_chunk(step_fn, state, 10)
     for field in ("pos", "vel"):
@@ -1376,7 +1374,7 @@ def phase_j(dev):
     state, solver, fx = loop["warm"], loop["solver"], loop["force_extra"]
     check(state.step == 100, f"the warm state is at step {state.step}")
     t = 100 * DF_DT
-    phi = solver.potential(state.pos, order=state.sort_order)
+    phi = solver.potential(state.pos)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2048,11 +2046,11 @@ def m_unbinding(dev):
     calls, kernel_ms = [], []
     direct, potential = umain._direct_potential, DirectGravity.potential
 
-    def timed_potential(self, x, order=None):
+    def timed_potential(self, x):
         start, end = (torch.cuda.Event(enable_timing=True)
                       for _ in range(2))
         start.record()
-        out = potential(self, x, order)
+        out = potential(self, x)
         end.record()
         torch.cuda.synchronize()
         kernel_ms.append((len(x), start.elapsed_time(end)))
@@ -2593,24 +2591,25 @@ def o_run_forces(dev, card, xr, mr, final):
     ring = DirectGravity(mr, h, G=G, impl="sharded",
                          devices=[card] * RING_RUN_D)
     one = DirectGravity(mr, h, G=G, impl="cuda", device=dev)
-    sd, pad = ring._sharded, ring.state_pad
+    sd = ring._sharded
+    pad = sd.npad - n
     check(pad == 3 and sd.use_kernels, f"(o.4) ring: {pad} ghost rows")
-    ghosts = torch.tensor(np.repeat(xr[-1:, :3], pad, 0),
-                          dtype=torch.float32, device=dev)
     idx = np.sort(np.random.default_rng(1).choice(n, RING_SAMPLE,
                                                   replace=False))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     errs = {}
     for label, x in (("start", xr[:, :3]), ("final", final[:, :3])):
         real = torch.tensor(x, dtype=torch.float32, device=dev)
-        padded = torch.cat([real, ghosts])
+        # the rows the ring runs: the real ones and the ghosts it pads
+        # them with, the last row repeated
+        padded = torch.cat([real, real[-1:].expand(pad, 3)])
         for mode, k in (("accel", "acc"), ("potential", "pot")):
-            got = getattr(ring, mode)(padded)
-            check(got.shape[0] == n + pad and torch.isfinite(got).all()
+            got = getattr(ring, mode)(real)
+            check(got.shape[0] == n and torch.isfinite(got).all()
                   .item(), f"(o.4) {label} {mode}: {tuple(got.shape)}")
-            rel, _ = rel_err(got[:n], getattr(one, mode)(real))
+            rel, _ = rel_err(got, getattr(one, mode)(real))
             want64 = direct64_at(x, mr * G, H, idx, dev, "spline", k)
-            rel64 = (np.abs(got[:n].double().cpu().numpy()[idx] - want64)
+            rel64 = (np.abs(got.double().cpu().numpy()[idx] - want64)
                      .max() / np.abs(want64).max())
             check(rel < 2e-6 and rel64 < 3e-6,
                   f"(o.4) ring {label} {mode}: {rel:.2e} vs one card (tol "
@@ -2643,6 +2642,7 @@ def phase_o(dev):
     launches of its two run paths and its numbers."""
     import nbody_streams_tpu_torch as nst
     from nbody_streams_tpu_torch.benchmarks import ring_scaling
+    from nbody_streams_tpu_torch.ops.cuda_direct import uses_spatial_sort
     from nbody_streams_tpu_torch.ops.dispatch import DirectGravity
     from nbody_streams_tpu_torch.parallel import sharded as sh
 
@@ -2655,7 +2655,8 @@ def phase_o(dev):
 
     # (o.1) the ring against the one-card sorted path and the fp64 sum
     one = DirectGravity(m, h, G=G, impl="cuda", device=dev)
-    check(one.spatial_sort_active, "the one-card reference is not sorted")
+    check(uses_spatial_sort(one.kernel, one.n),
+          "the one-card reference is not sorted")
     modes = {"accel": "acc", "potential": "pot"}
     ref = {mode: getattr(one, mode)(pos) for mode in modes}
     idx = np.sort(np.random.default_rng(0).choice(N_BENCH, RING_SAMPLE,

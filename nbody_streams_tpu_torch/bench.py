@@ -107,13 +107,8 @@ def measure(device="cuda", windows=WINDOWS, steps=STEPS,
     field, fx = run_copies(external_potential, force_extra, m, device, dtype)
     accel_fn = make_accel_fn(solver, solver.mass, field, 1, fx)
     step_fn = make_kdk_step(accel_fn, dt, t0)
-    # as run_nbody: the first force's slab order from the initial
-    # positions, each step's from its drifted positions (make_kdk_step)
     state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, t0,
-                       dtype=dtype, force_extra=fx,
-                       sort_fn=(solver.sort_key if solver.spatial_sort_active
-                                else None),
-                       device=device)
+                       dtype=dtype, force_extra=fx, device=device)
     state = run_chunk(step_fn, state, warmup)
     warm = state
 

@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .ops.cuda_direct import slab_sort_key
 from .ops.pairwise import _as_tensor
 from .telemetry import span
 
@@ -40,12 +39,6 @@ class IntegratorState:
     ext_acc: torch.Tensor   # cached external-potential acceleration
     extra_state: Any        # ForceExtra state (anything, or ())
     step: int               # global step counter (host int: no device sync)
-    # (N,) slab order for the sorted CUDA path: that of ``pos`` where the
-    # solver asks for an order every step (the KDK step takes it after its
-    # drift), else the last one run_chunk took (presort / presort_every);
-    # None when unused.  A stale order is exact by construction (see
-    # ops/cuda_direct.py).
-    sort_order: torch.Tensor | None = None
 
 
 class ForceExtra:
@@ -82,20 +75,15 @@ def make_accel_fn(
     """Total acceleration = self gravity + cached external + extra term.
 
     Returns ``accel(pos, vel, t, step, ext_acc, extra_state,
-    refresh_ext=False, order=None) -> (acc, ext_acc, extra_state)``.
+    refresh_ext=False) -> (acc, ext_acc, extra_state)``.
     ``external_potential`` is duck-typed: ``force(pos, t)`` returning an
     (N, 3) tensor or array.  It is re-evaluated when
-    ``step % external_update_interval == 0`` (or ``refresh_ext``).
-
-    ``accel.sort_key`` is the solver's ``sort_key`` where the solver asks
-    for a fresh slab order every step (``presort_interval == 1``), else
-    None: ``make_kdk_step`` then takes the order itself."""
+    ``step % external_update_interval == 0`` (or ``refresh_ext``)."""
     k = int(external_update_interval)
 
-    def accel(pos, vel, t, step, ext_acc, extra_state, refresh_ext=False,
-              order=None):
+    def accel(pos, vel, t, step, ext_acc, extra_state, refresh_ext=False):
         with span("dispatch.gravity", step):
-            acc = solver.accel(pos, order=order)
+            acc = solver.accel(pos)
         if external_potential is not None:
             if refresh_ext or k <= 1 or step % k == 0:
                 with span("field.force", step):
@@ -106,9 +94,8 @@ def make_accel_fn(
         if force_extra is not None:
             phi = None
             if getattr(force_extra, "needs_phi", False):
-                # the carried slab order is reused for phi too
                 with span("dispatch.gravity", step):
-                    phi = solver.potential(pos, order=order)
+                    phi = solver.potential(pos)
             with span("friction.step", step):
                 extra, extra_state = force_extra(
                     extra_state, pos, vel, mass, t, phi=phi, step=step)
@@ -116,9 +103,6 @@ def make_accel_fn(
                                         device=acc.device)
         return acc, ext_acc, extra_state
 
-    accel.sort_key = (solver.sort_key
-                      if getattr(solver, "presort_interval", None) == 1
-                      else None)
     return accel
 
 
@@ -126,15 +110,7 @@ def make_kdk_step(accel_fn, dt: float, t0: float, compensated: bool = True):
     """One symplectic kick-drift-kick step: ``step_fn(state) -> state``.
 
     ``t`` is reconstructed as ``t0 + step*dt`` from the integer step
-    counter (never accumulated in low precision).
-
-    Where ``accel_fn.sort_key`` is set (``make_accel_fn``: the solver asks
-    for an order every step) the step takes the slab order from its
-    drifted positions, just before the force, and carries it in the
-    state: the force's band windows are then as narrow as a fresh order
-    makes them, where an order taken before the drift widens them by the
-    drift.  Otherwise the force runs on the state's order."""
-    sort_key = getattr(accel_fn, "sort_key", None)
+    counter (never accumulated in low precision)."""
 
     def step_fn(state: IntegratorState) -> IntegratorState:
         half = 0.5 * dt
@@ -146,53 +122,28 @@ def make_kdk_step(accel_fn, dt: float, t0: float, compensated: bool = True):
             pos, pos_c = state.pos + vel * dt, state.pos_c
         step = state.step + 1
         t = t0 + step * dt
-        order = state.sort_order
-        if sort_key is not None:
-            with span("dispatch.sort", step):
-                order = sort_key(pos)
         acc, ext_acc, extra_state = accel_fn(
-            pos, vel, t, step, state.ext_acc, state.extra_state,
-            order=order)
+            pos, vel, t, step, state.ext_acc, state.extra_state)
         if compensated:
             vel, vel_c = _comp_add(vel, vel_c, acc * half)
         else:
             vel = vel + acc * half
         return IntegratorState(pos, vel, pos_c, vel_c, acc, ext_acc,
-                               extra_state, step, order)
+                               extra_state, step)
 
     return step_fn
 
 
-def run_chunk(step_fn, state: IntegratorState, n_steps: int,
-              presort: bool = False, presort_every: int | None = None):
-    """Run ``n_steps`` KDK steps.
-
-    ``presort=True`` refreshes the state's slab order from the current
-    positions before the first step (one argsort per chunk instead of one
-    per force call); ``presort_every=k`` also refreshes it every ``k``
-    steps inside the chunk.  A step that takes its own order
-    (``make_kdk_step`` with ``accel_fn.sort_key``) needs neither."""
-    for i in range(n_steps):
-        if (presort and i == 0) or (presort_every and i
-                                    and i % presort_every == 0):
-            with span("dispatch.sort", state.step):
-                order = slab_sort_key(state.pos)
-            state = dataclasses.replace(state, sort_order=order)
+def run_chunk(step_fn, state: IntegratorState, n_steps: int):
+    """Run ``n_steps`` KDK steps."""
+    for _ in range(n_steps):
         state = step_fn(state)
     return state
 
 
 def system_energy(state: IntegratorState, solver, mass):
-    """(KE, PE) 0-dim tensors with PE = 0.5 sum m_i phi_i (self-gravity).
-
-    A ghost-padded state (sharded backend, N not divisible by the shard
-    count) is handled by zero-padding ``mass`` to the state's length:
-    ghosts are zero-mass by construction, so they contribute exactly
-    nothing either way."""
-    phi = solver.potential(state.pos, order=state.sort_order)
-    if mass.shape[0] != state.pos.shape[0]:
-        mass = torch.nn.functional.pad(
-            mass, (0, state.pos.shape[0] - mass.shape[0]))
+    """(KE, PE) 0-dim tensors with PE = 0.5 sum m_i phi_i (self-gravity)."""
+    phi = solver.potential(state.pos)
     v2 = (state.vel * state.vel).sum(1)
     return 0.5 * (mass * v2).sum(), 0.5 * (mass * phi).sum()
 
@@ -207,7 +158,6 @@ def init_state(
     dt: float = 0.0,
     dtype=torch.float32,
     force_extra: ForceExtra | None = None,
-    sort_fn=None,
     device=None,
     comp=None,
     extra_state=None,
@@ -217,9 +167,7 @@ def init_state(
 
     With no ``device`` a tensor ``pos`` keeps its device; anything else
     goes to the card, and without one the default raises (pass
-    ``device='cpu'`` for the CPU).  Pass ``sort_fn`` (e.g.
-    ``solver.sort_key``) when the chunks will run with ``presort=True`` so
-    the first force call already reuses an order.  A resumed run passes
+    ``device='cpu'`` for the CPU).  A resumed run passes
     the Kahan compensations ``comp = (pos_c, vel_c)`` and the extra force's
     ``extra_state`` it saved, in place of zeros and
     ``force_extra.init_state``."""
@@ -231,16 +179,14 @@ def init_state(
     zeros = torch.zeros_like(pos)
     pos_c, vel_c = ((zeros, torch.zeros_like(vel)) if comp is None
                     else [_as_tensor(c, dtype, device) for c in comp])
-    sort_order = sort_fn(pos) if sort_fn is not None else None
     t = t0 + start_step * dt
     if extra_state is None:
         extra_state = (force_extra.init_state(pos, vel, mass, t)
                        if force_extra is not None else ())
     acc, ext_acc, extra_state = accel_fn(
-        pos, vel, t, start_step, zeros, extra_state, refresh_ext=True,
-        order=sort_order)
+        pos, vel, t, start_step, zeros, extra_state, refresh_ext=True)
     return IntegratorState(pos, vel, pos_c, vel_c, acc, ext_acc,
-                           extra_state, int(start_step), sort_order)
+                           extra_state, int(start_step))
 
 
 _STATE_ARRAYS = ("pos", "vel", "pos_c", "vel_c", "acc", "ext_acc")
@@ -272,9 +218,9 @@ def _extra_to_numpy(extra):
 def from_jax_state(arrays: dict, extra_state=None,
                    device=None) -> IntegratorState:
     """The port's state from the JAX package's ``IntegratorState`` fields
-    given as numpy arrays (``pos, vel, pos_c, vel_c, acc, ext_acc, step,
-    sort_order``; ``sort_order`` may be absent, None or empty for no
-    order), on ``device``: the card unless the caller passes
+    given as numpy arrays (``pos, vel, pos_c, vel_c, acc, ext_acc, step``;
+    other keys, such as the JAX state's slab order, are ignored: the solver
+    takes its own), on ``device``: the card unless the caller passes
     ``device='cpu'`` (without a card the default raises).  Dtypes are
     kept.
 
@@ -285,24 +231,16 @@ def from_jax_state(arrays: dict, extra_state=None,
     device = resolve_device("cuda" if device is None else device)
     fields = {k: torch.as_tensor(np.array(arrays[k]), device=device)
               for k in _STATE_ARRAYS}
-    order = arrays.get("sort_order")
-    if order is not None and np.size(order) == 0:
-        order = None
-    if order is not None:
-        order = torch.as_tensor(np.asarray(order, np.int64), device=device)
     extra = (() if extra_state is None
              else _extra_from_numpy(extra_state, device))
     return IntegratorState(extra_state=extra, step=int(arrays["step"]),
-                           sort_order=order, **fields)
+                           **fields)
 
 
 def to_numpy_state(state: IntegratorState) -> dict:
-    """The state's fields as numpy arrays (the keys of ``from_jax_state``;
-    ``sort_order`` is None when the state holds no order), and
-    ``extra_state`` with its tensors as numpy arrays."""
+    """The state's fields as numpy arrays (the keys of ``from_jax_state``)
+    and ``extra_state`` with its tensors as numpy arrays."""
     out = {k: getattr(state, k).detach().cpu().numpy() for k in _STATE_ARRAYS}
     out["step"] = np.int32(state.step)
-    out["sort_order"] = (None if state.sort_order is None
-                         else state.sort_order.cpu().numpy().astype(np.int32))
     out["extra_state"] = _extra_to_numpy(state.extra_state)
     return out

@@ -696,7 +696,11 @@ def _self_sorted(pos, gmass, soft, kind, kahan, mode, eps2, tm=None,
     ``order`` may be any permutation (a stale slab order included): the
     band windows are recomputed from the actual positions on every call,
     so a bad order only widens them until the single-pass fallback takes
-    over.
+    over.  With ``order=None`` (every solver call) the order is taken
+    here from ``pos``, in a ``dispatch.sort`` span: a stale one would
+    cost more than the argsort, since at the N = 65,536 bench case an
+    order ~10 steps old already forces the fallback, and at the MW + LMC
+    satellite's 1M an order one drift old does (PERF.md).
 
     The base pass: with ``mxu`` (acc) kernel M, folded or not
     (``fold_mass``); with ``fast`` kernel F (acc and pot), which needs the
@@ -721,7 +725,8 @@ def _self_sorted(pos, gmass, soft, kind, kahan, mode, eps2, tm=None,
     tn = TN if tn is None else tn
     _check_geometry(tm, tn)
     if order is None:
-        order = slab_sort_key(pos)
+        with span("dispatch.sort"):
+            order = slab_sort_key(pos)
     ps, gs, hs = pos[order], gmass[order], soft[order]
     if moment:
         # centre the coordinates (pallas_direct.py:685-695): the moment

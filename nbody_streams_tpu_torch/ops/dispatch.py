@@ -16,8 +16,8 @@ The solver lives on ``device``: the card unless the caller passes
 ``device='cpu'`` (without a card the default raises); a sharded solver
 lives on the first of its ``devices``.  All backends share one contract:
 ``accel(pos) -> (N, 3)`` and ``potential(pos) -> (N,)``, closed over the
-particle population (a sharded solver also takes ghost-padded
-``(N + state_pad, 3)`` positions and keeps their length).
+particle population.  How a backend lays the rows out (the sorted path's
+slab order, the ring's padding to whole shards) stays inside it.
 """
 from __future__ import annotations
 
@@ -223,63 +223,15 @@ class DirectGravity:
                     "precision='float32_fast' builds r^2 on the moment "
                     "path; tile_config {'mxu': False} conflicts with it")
 
-    def shard_state(self, x):
-        """Ghost-pad an (N, ...) state tensor for the sharded backend (see
-        ``ShardedDirect.shard_state``); a no-op for the one-device
-        backends."""
-        if self.impl == "sharded":
-            return self._sharded.shard_state(x)
-        return x
-
-    @property
-    def state_pad(self) -> int:
-        """Ghost rows the sharded backend appends to make N divisible by
-        the shard count (0 for the one-device backends and for even N).
-        Ghosts are zero-mass, so they are invisible to forces and to every
-        mass-weighted diagnostic; run_nbody freezes them and
-        strips them from all host-visible output."""
-        if self.impl == "sharded":
-            return self._sharded.npad - self.n
-        return 0
-
     def _check_pos(self, pos):
-        ok = {(self.n, 3), (self.n + self.state_pad, 3)}
-        if pos.ndim != 2 or tuple(pos.shape) not in ok:
+        if pos.ndim != 2 or tuple(pos.shape) != (self.n, 3):
             raise ValueError(
                 f"pos shape {tuple(pos.shape)} does not match the solver's "
                 f"({self.n}, 3) particle population")
 
-    # -- spatial-sort order reuse --------------------------------------------
-    @property
-    def spatial_sort_active(self) -> bool:
-        """True when accel/potential take the slab-sorted two-pass path
-        and therefore accept a reusable ``order=`` (the integrator sorts
-        once per chunk instead of per force call)."""
-        return (self.impl == "cuda"
-                and cuda_direct.uses_spatial_sort(self.kernel, self.n))
-
-    def sort_key(self, pos):
-        """The slab order accel/potential would compute internally."""
-        return cuda_direct.slab_sort_key(pos)
-
-    @property
-    def presort_interval(self):
-        """The slab order's refresh cadence: every step on the sorted
-        path, where ``make_kdk_step`` takes it from the drifted positions
-        just before the force.  A stale order stays exact (the band
-        windows widen until the single-pass fallback takes over), but at
-        the N = 65,536 bench case an order ~10 steps old already forces
-        the fallback, and at the MW + LMC satellite's 1M an order one
-        drift old does, while a GPU argsort of the positions costs far
-        less than the two-pass saving (PERF.md)."""
-        return 1 if self.spatial_sort_active else None
-
     # -- backend dispatch ---------------------------------------------------
-    def accel(self, pos, order=None):
-        """Softened gravitational acceleration, (N, 3) in solver dtype.
-
-        ``order`` optionally supplies a precomputed (possibly stale) slab
-        order for the sorted path; ignored by the oracle."""
+    def accel(self, pos):
+        """Softened gravitational acceleration, (N, 3) in solver dtype."""
         self._check_pos(pos)
         pos = pos.to(self.dtype)
         if self.impl == "sharded":
@@ -287,13 +239,12 @@ class DirectGravity:
         if self.impl == "cuda":
             return cuda_direct.cuda_accel(
                 pos, self.mass, self.softening, self.G, self.kernel,
-                self.kahan, self.eps2, order=order, fast=self.fast,
-                tile=self._tile)
+                self.kahan, self.eps2, fast=self.fast, tile=self._tile)
         return pairwise._pairwise_blocked(
             pos, self.mass, self.softening, self.G, self.kernel, self.kahan,
             self.block_size, "acc", self.eps2)
 
-    def potential(self, pos, order=None):
+    def potential(self, pos):
         """Softened gravitational potential per particle, (N,)."""
         self._check_pos(pos)
         pos = pos.to(self.dtype)
@@ -302,8 +253,7 @@ class DirectGravity:
         if self.impl == "cuda":
             return cuda_direct.cuda_potential(
                 pos, self.mass, self.softening, self.G, self.kernel,
-                self.kahan, self.eps2, order=order, fast=self.fast,
-                tile=self._tile)
+                self.kahan, self.eps2, fast=self.fast, tile=self._tile)
         return pairwise._pairwise_blocked(
             pos, self.mass, self.softening, self.G, self.kernel, self.kahan,
             self.block_size, "pot", self.eps2)

@@ -225,9 +225,6 @@ class SCFGravity:
         a card the default raises).
     """
 
-    spatial_sort_active = False
-    sort_key = None
-
     def __init__(self, mass, softening=None, *, nmax: int = 8,
                  lmax: int = 4, mmax: int | None = None, a: float | None
                  = None, symmetry: str = "none", center=None,
@@ -316,13 +313,13 @@ class SCFGravity:
                                 self.labels, self._K_flat, self._mask,
                                 self._harm)
 
-    def accel(self, pos, order=None):
+    def accel(self, pos):
         """(N, 3) accelerations of the particles on themselves."""
         p = self._frame(pos)
         return scf_accel(p, self._coefs(p), self.a, self.G, self.nmax,
                          self.lmax, self.labels, self._harm)
 
-    def potential(self, pos, order=None):
+    def potential(self, pos):
         """(N,) potential of the particles at the particles."""
         p = self._frame(pos)
         return scf_potential(p, self._coefs(p), self.a, self.G, self.nmax,
@@ -363,9 +360,6 @@ class CompositeSCFGravity:
     the groups must partition the particles.  ``device`` as
     :class:`SCFGravity`.
     """
-
-    spatial_sort_active = False
-    sort_key = None
 
     def __init__(self, mass, softening=None, *, groups, G: float = G_DEFAULT,
                  precision: str = "float32", phase_space=None,
@@ -426,10 +420,10 @@ class CompositeSCFGravity:
             out = part if out is None else out + part
         return out
 
-    def accel(self, pos, order=None):
+    def accel(self, pos):
         """(N, 3) accelerations: sum of every group's field at pos."""
         return self._sum_fields(pos, "acc")
 
-    def potential(self, pos, order=None):
+    def potential(self, pos):
         """(N,) potential: sum of every group's field at pos."""
         return self._sum_fields(pos, "pot")

@@ -6,11 +6,12 @@ shard), the source blocks passed round a ring.
 
 Algorithm (the systolic ring of the JAX package, driven from one process):
 
-1. The padded particle axis is cut into D blocks of ``n_local`` rows; shard
-   k owns block k's targets (positions, G-premultiplied masses,
-   softenings), each on its own device.  A device may appear more than once
-   in the list: such *virtual shards* run every part of the ring on one
-   device (the counterpart of ``--xla_force_host_platform_device_count``).
+1. The particle axis, padded to whole shards, is cut into D blocks of
+   ``n_local`` rows; shard k owns block k's targets (positions,
+   G-premultiplied masses, softenings), each on its own device.  A device
+   may appear more than once in the list: such *virtual shards* run every
+   part of the ring on one device (the counterpart of
+   ``--xla_force_host_platform_device_count``).
 2. At ring step r shard k holds source block (k - r) mod D.  The copy of
    that block to shard k + 1 is issued before shard k's tile, so on the
    card it overlaps the tile; D - 1 steps copy, the last does not.
@@ -319,39 +320,22 @@ class ShardedDirect:
     def _sharded_eval(self, mode, pos):
         n = self.solver.n
         pos = pos.to(device=self.mesh[0], dtype=self.solver.dtype)
-        # a ghost-padded state (shard_state) arrives at npad rows and keeps
-        # that length on output
-        padded_in = pos.shape[0] == self.npad and self.npad != n
         if mode == "acc" and self.mxu and self.solver.kernel == "spline":
             # the moment form's frame (the JAX package's sharded.py:250-256):
             # the forces are translation invariant, and the shift bounds
-            # the finalisation's cancellation by the system's extent; the
-            # centroid of the n real rows, not of the zero ghost rows
-            pos = pos - pos[:n].mean(0, keepdim=True)
-        posp = pos if padded_in else F.pad(pos, (0, 0, 0, self.npad - n))
-        out = self._ring(mode, posp)
-        return out if padded_in else out[:n]
+            # the finalisation's cancellation by the system's extent
+            pos = pos - pos.mean(0, keepdim=True)
+        # ghost rows up to whole shards: the last row repeated, at the zero
+        # mass __init__ padded, so that the last shard's x-interval (and
+        # the far test) is that of its real rows
+        posp = torch.cat([pos, pos[-1:].expand(self.npad - n, 3)])
+        return self._ring(mode, posp)[:n]
 
     def accel(self, pos):
         return self._sharded_eval("acc", pos)
 
     def potential(self, pos):
         return self._sharded_eval("pot", pos)
-
-    def shard_state(self, x):
-        """``x`` (N, ...) padded with ``npad - N`` zero rows (ghost
-        particles) on the first device; a tensor already at ``npad`` rows
-        is only moved there.
-
-        Ghosts are exact by construction: their G-premultiplied mass is
-        zero (padded at __init__), so they contribute nothing to any real
-        row, and every mass-weighted diagnostic is ghost-blind.
-        ``run_nbody`` puts its ghost rows at the last real particle,
-        freezes them (zero-masked acceleration) and strips them from every
-        host-visible output."""
-        x = torch.as_tensor(x, device=self.mesh[0])
-        return F.pad(x, (0, 0) * (x.ndim - 1)
-                     + (0, self.npad - x.shape[0]))
 
 
 def slab_sort_for_sharding(phase_space, *arrays):

@@ -10,8 +10,8 @@ an external field and a ``ForceExtra`` (the dynamical friction) add their
 terms.  ``profile_dir`` traces the chunks with ``torch.profiler``, the
 program's spans (``telemetry``) included.
 ``devices`` with more than one entry runs the ring of shards
-(``parallel/sharded.py``); an N the shard count does not divide is padded
-with zero-mass ghost rows, frozen and stripped from every output.
+(``parallel/sharded.py``), which pads an N the shard count does not divide
+inside the solver: the state holds the N rows.
 """
 from __future__ import annotations
 
@@ -61,49 +61,36 @@ _WATCH_STEPS = 50
 class CallbackForceExtra(ForceExtra):
     """Adapter for reference-style plain callables
     ``fn(pos, vel, masses, time) -> (N, 3)`` on numpy arrays: the state is
-    copied to the host for each call.
+    copied to the host for each call."""
 
-    With ``pad`` ghost rows (a ghost-padded sharded state) the callable
-    keeps its exact contract: it sees only the real rows, and the ghost
-    rows get zero extra force."""
-
-    def __init__(self, fn, mass_np, pad: int = 0):
+    def __init__(self, fn, mass_np):
         self.fn = fn
         self.mass_np = np.asarray(mass_np, np.float64)
-        self.pad = int(pad)
 
     def __call__(self, state, pos, vel, mass, t, phi=None, step=0):
-        n = pos.shape[0] - self.pad
-        out = self.fn(pos[:n].cpu().numpy(), vel[:n].cpu().numpy(),
-                      self.mass_np, float(t))
-        out = torch.as_tensor(np.asarray(out), dtype=pos.dtype,
-                              device=pos.device)
-        if self.pad:
-            out = torch.cat([out, out.new_zeros((self.pad, 3))])
-        return out, state
+        out = self.fn(pos.cpu().numpy(), vel.cpu().numpy(), self.mass_np,
+                      float(t))
+        return torch.as_tensor(np.asarray(out), dtype=pos.dtype,
+                               device=pos.device), state
 
 
-def _restart_state(state: IntegratorState, n: int) -> dict:
+def _restart_state(state: IntegratorState) -> dict:
     """What a resume needs besides the phase space, as numpy arrays: the
-    Kahan compensations of the ``n`` real rows and, when it is a dict (the
-    friction's), the extra force's state under ``extra_<key>``."""
-    out = {"pos_c": state.pos_c[:n], "vel_c": state.vel_c[:n]}
+    Kahan compensations and, when it is a dict (the friction's), the extra
+    force's state under ``extra_<key>``."""
+    out = {"pos_c": state.pos_c, "vel_c": state.vel_c}
     if isinstance(state.extra_state, dict):
         out.update({f"extra_{k}": v for k, v in state.extra_state.items()})
     return _extra_to_numpy(out)
 
 
-def _resumed_state(saved, pad: int, device):
+def _resumed_state(saved, device):
     """(comp, extra_state) for ``init_state`` from a restart file's
-    ``state`` (``_restart_state``), the compensations padded with ``pad``
-    zero ghost rows; None for what the file does not hold (the JAX
-    package's files hold neither)."""
+    ``state`` (``_restart_state``); None for what the file does not hold
+    (the JAX package's files hold neither)."""
     if not saved:
         return None, None
-    comp = None
-    if "pos_c" in saved:
-        comp = [np.pad(saved[k], ((0, pad), (0, 0)))
-                for k in ("pos_c", "vel_c")]
+    comp = (saved["pos_c"], saved["vel_c"]) if "pos_c" in saved else None
     extra = {k.removeprefix("extra_"): v for k, v in saved.items()
              if k.startswith("extra_")}
     return comp, (_extra_from_numpy(extra, device) if extra else None)
@@ -159,20 +146,18 @@ def _resolve_device(architecture: str) -> torch.device:
     raise ValueError(f"Unknown architecture {architecture!r}")
 
 
-def run_copies(external_potential, force_extra, masses, device, dtype,
-               pad: int = 0):
+def run_copies(external_potential, force_extra, masses, device, dtype):
     """The external field and the extra force as a run uses them: a torch
     module field as a copy moved to ``device`` and ``dtype`` (the caller's
     object is left as it is), a ``ForceExtra`` with a ``to(device, dtype)``
     method (the dynamical friction) as the copy it returns, and a plain
-    ``fn(pos, vel, masses, t)`` wrapped in ``CallbackForceExtra`` (``pad``
-    ghost rows hidden from it)."""
+    ``fn(pos, vel, masses, t)`` wrapped in ``CallbackForceExtra``."""
     if isinstance(external_potential, torch.nn.Module):
         external_potential = copy.deepcopy(external_potential).to(
             device=device, dtype=dtype)
     fx = force_extra
     if fx is not None and not isinstance(fx, ForceExtra):
-        fx = CallbackForceExtra(fx, masses, pad=pad)
+        fx = CallbackForceExtra(fx, masses)
     elif callable(getattr(fx, "to", None)):
         fx = fx.to(device=device, dtype=dtype)
     return external_potential, fx
@@ -290,11 +275,9 @@ def run_nbody(
     * ``devices``: with more than one entry (``['cuda:0', 'cuda:1']``, or
       virtual shards of one device such as ``['cpu'] * 8``) the force runs
       on the ring of shards (``impl='sharded'``).  When N is not a
-      multiple of the shard count the state carries zero-mass ghost rows
-      at the last particle's position with zero velocity, frozen by a mask
-      on the acceleration (the external field's and the extra force's
-      included) and stripped from the return value, the snapshots, the
-      restart file and the energies.
+      multiple of the shard count the ring pads its input to whole shards
+      with zero-mass rows and strips them from its output; the state, the
+      snapshots and the restart file hold the N rows.
     """
     # the call's start: the solver, the field's copy, the first force
     with span("entry.start"):
@@ -413,80 +396,43 @@ def run_nbody(
                 target_drift=target_drift, devices=devices,
             )
             device = solver.device
-        # Ghost padding (sharded backend, N not divisible by the shard count):
-        # integrate N + pad rows so every shard holds n_local rows.  Ghosts are
-        # zero-mass (invisible to forces and mass-weighted diagnostics), frozen
-        # (zero-masked acceleration below) and stripped from every host-visible
-        # output.
-        pad = getattr(solver, "state_pad", 0)
-        mass_dev = (torch.nn.functional.pad(solver.mass, (0, pad)) if pad
-                    else solver.mass)
 
         external_potential, fx = run_copies(
-            external_potential, force_extra, masses, device, state_dtype,
-            pad=pad)
+            external_potential, force_extra, masses, device, state_dtype)
 
         if verbose:
             print("=" * 70)
             print(f"N-body integration  [{device.type}/{solver.impl}, "
                   f"{precision}, kernel={getattr(solver, 'kernel', kernel)}]")
             print(f"Particles: {n:,}  steps: {total_steps:,} "
-                  f"(start {start_step})  dt={dt:.3e}"
-                  + (f"  [+{pad} zero-mass ghost rows: even shards]"
-                     if pad else ""))
+                  f"(start {start_step})  dt={dt:.3e}")
             print("=" * 70)
 
-        accel_fn = make_accel_fn(solver, mass_dev, external_potential,
+        accel_fn = make_accel_fn(solver, solver.mass, external_potential,
                                  external_update_interval, fx)
-        if pad:
-            _base_accel = accel_fn
-            _live = torch.cat([torch.ones((n, 1), dtype=state_dtype),
-                               torch.zeros((pad, 1), dtype=state_dtype)]).to(
-                                   device)
-
-            def accel_fn(pos, vel, t, step, ext_acc, extra_state,
-                         refresh_ext=False, order=None):
-                acc, ext_acc, extra_state = _base_accel(
-                    pos, vel, t, step, ext_acc, extra_state,
-                    refresh_ext=refresh_ext, order=order)
-                # freeze the ghosts: one multiply a step
-                return acc * _live, ext_acc, extra_state
         step_fn = make_kdk_step(accel_fn, dt, time_start,
                                 compensated=(precision == "float32_kahan"))
 
-        xv_init = xv
-        if pad:
-            # ghost rows at the last real particle's position (inside the last
-            # shard's x-interval, so the ring's far test does not change) with
-            # zero velocity
-            ghost = np.repeat(xv[-1:], pad, axis=0)
-            ghost[:, 3:] = 0.0
-            xv_init = np.vstack([xv, ghost])
         # a resume restores the compensations and the extra force's state its
         # restart file holds, so that it continues the run it stopped
-        comp, extra0 = _resumed_state(saved_state, pad, device)
-        # the slab order: the first force's from the initial positions, then
-        # each step's from its drifted positions (make_kdk_step), carried in
-        # the state
+        comp, extra0 = _resumed_state(saved_state, device)
         state = init_state(
-            xv_init[:, :3], xv_init[:, 3:], accel_fn, mass_dev, time_start,
+            xv[:, :3], xv[:, 3:], accel_fn, solver.mass, time_start,
             start_step=start_step, dt=dt, dtype=state_dtype, force_extra=fx,
-            sort_fn=solver.sort_key if solver.spatial_sort_active else None,
             device=device, comp=comp,
             extra_state=extra0 if fx is not None else None,
         )
 
         e_ref = None
         if debug_energy:
-            ke, pe = system_energy(state, solver, mass_dev)
+            ke, pe = system_energy(state, solver, solver.mass)
             e_ref = float(ke) + float(pe)
             if verbose:
                 print(f"[energy t0] KE={float(ke):.4e} PE={float(pe):.4e} "
                       f"E={e_ref:.4e}")
 
         def fetch_xv(st: IntegratorState) -> np.ndarray:
-            # [:n] strips the ghost rows (all rows when pad == 0)
-            return torch.cat([st.pos[:n], st.vel[:n]], dim=1).cpu().numpy(
+            return torch.cat([st.pos, st.vel], dim=1).cpu().numpy(
             ).astype(np.float64)
 
         def write_snapshot(xv_host, counter, t):
@@ -530,7 +476,7 @@ def run_nbody(
         # emergency payload: the last *completed* state, with its Kahan
         # compensations and extra (friction) state, and its step and time, set
         # in one assignment so that the watchdog's thread reads one state
-        last = (xv, _restart_state(state, n) if step_timeout_s else None,
+        last = (xv, _restart_state(state) if step_timeout_s else None,
                 start_step, time_start + start_step * dt)
 
         def emergency_restart():
@@ -565,21 +511,19 @@ def run_nbody(
             while done < n_steps:
                 s = min(_WATCH_STEPS if step_timeout_s else n_steps,
                         n_steps - done)
-                with span("integrator.chunk", step=current + done):
+                watch = (_ChunkWatchdog(step_timeout_s * s + _CHUNK_GRACE_S,
+                                        emergency_restart)
+                         if step_timeout_s else contextlib.nullcontext())
+                with span("integrator.chunk", step=current + done), watch:
+                    state = run_chunk(step_fn, state, s)
                     if step_timeout_s:
-                        with _ChunkWatchdog(
-                                step_timeout_s * s + _CHUNK_GRACE_S,
-                                emergency_restart):
-                            state = run_chunk(step_fn, state, s)
-                            with span("integrator.sync"):
-                                _synchronize(device)
-                    else:
-                        state = run_chunk(step_fn, state, s)
+                        with span("integrator.sync"):
+                            _synchronize(device)
                 done += s
                 if step_timeout_s:
                     with span("entry.boundary", step=current + done), \
                             boundary_guard():
-                        last = (fetch_xv(state), _restart_state(state, n),
+                        last = (fetch_xv(state), _restart_state(state),
                                 current + done,
                                 time_start + (current + done) * dt)
             current = boundary
@@ -618,7 +562,7 @@ def run_nbody(
                     if due_restart:
                         _save_restart(xv_host, t_now, current, output_path,
                                       snapshot_counter,
-                                      state=_restart_state(state, n),
+                                      state=_restart_state(state),
                                       **restart_kwargs)
                 if verbose:
                     elapsed = pytime.perf_counter() - t_wall0
@@ -630,7 +574,8 @@ def run_nbody(
                             "ms/step")
                     if debug_energy and e_ref is not None:
                         with boundary_guard():
-                            ke, pe = system_energy(state, solver, mass_dev)
+                            ke, pe = system_energy(state, solver,
+                                                   solver.mass)
                             ke, pe = float(ke), float(pe)
                         etot = ke + pe
                         q = f"{ke / abs(pe):.3f}" if pe else "inf"
@@ -647,7 +592,7 @@ def run_nbody(
             # or a _stop_step): save the ACTUAL step of the state, never
             # total_steps
             _save_restart(xv_final, t_now, current, output_path,
-                          snapshot_counter, state=_restart_state(state, n),
+                          snapshot_counter, state=_restart_state(state),
                           **restart_kwargs)
 
     if verbose:

@@ -28,10 +28,10 @@ dot):
   (a boundary's fetch, NaN check, snapshot and restart; the final fetch);
 * ``integrator.chunk`` (one ``run_chunk``), ``integrator.sync`` (the
   watchdog's synchronise after a chunk);
-* ``dispatch.sort`` (the slab order, taken in the KDK step from its
-  drifted positions just before the force), ``dispatch.gravity`` (one
-  ``solver.accel`` or ``solver.potential`` call), ``dispatch.sync`` (the
-  sorted path's branch read, ``cuda_direct._self_sorted``);
+* ``dispatch.gravity`` (one ``solver.accel`` or ``solver.potential``
+  call), inside it, on the sorted path (``cuda_direct._self_sorted``),
+  ``dispatch.sort`` (the slab order of the positions the call was given)
+  and ``dispatch.sync`` (the branch read);
 * ``field.force`` (the external field's ``force`` on its refresh steps);
 * ``friction.step`` (the extra force's call), ``friction.centre`` (the
   friction's centre on its refresh steps), ``friction.density`` (its

@@ -330,13 +330,10 @@ def test_cuda_impl_matches_torch_impl_over_kdk_steps(dev):
     for impl in ("cuda", "torch"):
         solver = DirectGravity(m, np.full(16384, H), impl=impl, device=dev)
         accel_fn = make_accel_fn(solver, solver.mass)
-        presort = solver.spatial_sort_active
         state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, 0.0,
-                           sort_fn=solver.sort_key if presort else None,
                            device=dev)
         finals[impl] = run_chunk(make_kdk_step(accel_fn, 2e-5, 0.0), state,
-                                 10, presort=presort,
-                                 presort_every=solver.presort_interval)
+                                 10)
     for field in ("pos", "vel"):
         assert _rel(getattr(finals["cuda"], field),
                     getattr(finals["torch"], field)) < 1e-6
@@ -345,11 +342,11 @@ def test_cuda_impl_matches_torch_impl_over_kdk_steps(dev):
 @pytest.mark.cuda
 def test_satellite_steps_take_the_two_pass_path(dev):
     """The flagship's satellite (its three components, Eddington DF) at
-    N = 262,145 in the MW + LMC field with friction, dt = 5e-4: the KDK
-    step takes its slab order from the drifted positions, so every
-    evaluation takes the two passes, where the order one drift old
-    overflows the band; the force on the final state's order is within
-    3e-6 of the float64 sum at 4,096 targets."""
+    N = 262,145 in the MW + LMC field with friction, dt = 5e-4: the
+    solver sorts the drifted positions it is given, so every evaluation
+    takes the two passes, where the order one drift old overflows the
+    band; the force on the final state is within 3e-6 of the float64 sum
+    at 4,096 targets."""
     from nbody_streams_tpu_torch.benchmarks import flagship2m as fl
     from nbody_streams_tpu_torch.friction import make_df_force_extra
     from nbody_streams_tpu_torch.potentials.mwlmc import (
@@ -370,15 +367,17 @@ def test_satellite_steps_take_the_two_pass_path(dev):
     step_fn = make_kdk_step(accel_fn, dt, t0)
     before = dict(cd.BRANCHES)
     state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, t0,
-                       force_extra=fx, sort_fn=solver.sort_key, device=dev)
+                       force_extra=fx, device=dev)
     prev = run_chunk(step_fn, state, steps - 1)
     last = step_fn(prev)
-    got = solver.accel(last.pos, order=last.sort_order)
+    got = solver.accel(last.pos)
     assert cd.BRANCHES["single_pass"] == before["single_pass"]
     assert cd.BRANCHES["two_pass"] == before["two_pass"] + steps + 2
     h = solver.softening.max()
-    _, stale, rows = cd.band_window(last.pos[prev.sort_order][:, 0], h)
-    _, own, _ = cd.band_window(last.pos[last.sort_order][:, 0], h)
+    stale_order = cd.slab_sort_key(prev.pos)
+    _, stale, rows = cd.band_window(last.pos[stale_order][:, 0], h)
+    _, own, _ = cd.band_window(last.pos[cd.slab_sort_key(last.pos)][:, 0],
+                               h)
     assert int(own) <= cd.band_rows(rows) < int(stale)
     idx = np.random.default_rng(0).choice(n, 4096, replace=False)
     want = chip_smoke.direct64_at(last.pos, G * mass, soft, idx, dev,
@@ -393,8 +392,8 @@ def test_king_cluster_steps_take_the_single_pass(dev):
     5e6 Msun, h = 0.004 kpc) at N = 262,144 in the static McMillan17
     field, dt = 5e-4, 3 steps: its core outgrows the band, so every
     evaluation takes the single pass and the band windows sum to more
-    rows than the band; the final force on the state's own order is
-    within 3e-6 of the float64 sum at 4,096 targets."""
+    rows than the band; the final force is within 3e-6 of the float64 sum
+    at 4,096 targets."""
     from nbody_streams_tpu_torch.fast_sims.king import sample_king
     from nbody_streams_tpu_torch.potentials import make_potential
     from nbody_streams_tpu_torch.potentials.mwlmc import mw_lmc_data_dir
@@ -413,9 +412,9 @@ def test_king_cluster_steps_take_the_single_pass(dev):
     step_fn = make_kdk_step(accel_fn, dt, t0)
     before = dict(cd.BRANCHES)
     state = init_state(xv[:, :3], xv[:, 3:], accel_fn, solver.mass, t0,
-                       sort_fn=solver.sort_key, device=dev)
+                       device=dev)
     last = run_chunk(step_fn, state, steps)
-    got = solver.accel(last.pos, order=last.sort_order)
+    got = solver.accel(last.pos)
     took = {k: cd.BRANCHES[k] - before[k] for k in before}
     assert took["single_pass"] == steps + 2 and took["two_pass"] == 0
     assert took["window_rows"] > took["band_rows"] > 0
@@ -974,21 +973,19 @@ def _ring_case(n, seed=2, sort=True):
 def test_ring_on_virtual_shards_matches_one_card(dev, n):
     """The ring over ['cuda:0'] * 4 against the one-card solver, force and
     potential, within 2e-6 * max; at N = 8,193 the ring pads 3 ghost rows
-    and the padded input gives the unpadded result on the real rows."""
+    inside the solver: N rows in, N rows out."""
     xv, m, h = _ring_case(n)
     ring = DirectGravity(m, h, G=G, impl="sharded", devices=["cuda:0"] * 4)
     one = DirectGravity(m, h, G=G, impl="cuda", device=dev)
-    assert ring._sharded.use_kernels and ring.state_pad == (-n) % 4
+    assert ring._sharded.use_kernels and ring._sharded.npad == n + (-n) % 4
     pos = torch.tensor(xv[:, :3], dtype=torch.float32, device=dev)
     before = cd.LAUNCHES["single"]
     for mode in ("accel", "potential"):
         got = getattr(ring, mode)(pos)
         assert got.is_cuda and torch.isfinite(got).all()
+        assert got.shape[0] == n
         assert _rel(got, getattr(one, mode)(pos)) < 2e-6
     assert cd.LAUNCHES["single"] - before >= 2 * 16
-    if ring.state_pad:
-        padded = torch.cat([pos, pos[-1:].expand(ring.state_pad, 3)])
-        assert torch.equal(ring.accel(padded)[:n], ring.accel(pos))
 
 
 @pytest.mark.cuda

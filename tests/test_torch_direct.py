@@ -559,22 +559,69 @@ def test_direct_gravity_default_device_is_the_card():
     assert solver.device.type == "cpu" and solver.impl == "torch"
 
 
-def test_direct_gravity_sorted_path_properties():
-    big = DirectGravity(np.full(16384, 1.0), 0.05, impl="cuda",
-                        device="cpu")
-    assert big.spatial_sort_active and big.presort_interval == 1
+def test_direct_gravity_sorted_path_properties(monkeypatch):
+    """The solver takes the sorted path on the spline at N >= SORT_MIN_N
+    with impl='cuda', and hands it no order: the path sorts the positions
+    it is given.  Smaller N and the oracle stay off it, and a position
+    array of another length raises."""
+    seen = []
+
+    def spy(pos, *args, **kw):
+        seen.append((pos.shape[0], kw.get("order")))
+        return torch.zeros_like(pos if args[4] == "acc" else pos[:, 0])
+
+    monkeypatch.setattr(cd, "_self_sorted", spy)
     pos = torch.tensor(np.random.default_rng(0).normal(size=(16384, 3)),
                        dtype=torch.float32)
-    assert torch.equal(big.sort_key(pos), torch.argsort(pos[:, 0],
-                                                        stable=True))
+    big = DirectGravity(np.full(16384, 1.0), 0.05, impl="cuda",
+                        device="cpu")
+    big.accel(pos)
+    big.potential(pos)
+    assert seen == [(16384, None)] * 2
     small = DirectGravity(np.full(512, 1.0), 0.05, impl="cuda",
                           device="cpu")
-    assert not small.spatial_sort_active and small.presort_interval is None
-    oracle = DirectGravity(np.full(16384, 1.0), 0.05, impl="torch",
+    small.accel(pos[:512])
+    oracle = DirectGravity(np.full(1024, 1.0), 0.05, impl="torch",
                            device="cpu")
-    assert not oracle.spatial_sort_active
+    oracle.accel(pos[:1024])
+    assert len(seen) == 2
     with pytest.raises(ValueError, match="pos shape"):
         small.accel(torch.zeros(10, 3))
+    with pytest.raises(ValueError, match="pos shape"):
+        small.accel(torch.zeros(520, 3))
+
+
+@pytest.mark.parametrize("mode", ["accel", "potential"])
+def test_direct_gravity_sorted_path_sorts_its_own_input(monkeypatch, mode):
+    """On the sorted path (its threshold lowered to N = 3,072, band
+    geometry 64 x 128) ``DirectGravity.accel`` / ``.potential`` equal
+    ``cuda_accel`` / ``cuda_potential`` given the slab order of the same
+    positions bit for bit, the solver's call opening its own
+    ``dispatch.sort`` before the branch read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nbody_streams_tpu_torch import telemetry
+
+    monkeypatch.setattr(cd, "SORT_MIN_N", 2048)
+    rng = np.random.default_rng(11)
+    n = 3072
+    solver = DirectGravity(rng.uniform(0.5, 2.0, n) * 1e5, np.full(n, 0.02),
+                           G=G, impl="cuda", device="cpu",
+                           tile_config={"tm": 64, "tn": 128})
+    pos = torch.tensor(rng.normal(0, 1, (n, 3)), dtype=torch.float32)
+    wrapper = cd.cuda_accel if mode == "accel" else cd.cuda_potential
+    before = dict(cd.BRANCHES)
+    telemetry.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = getattr(solver, mode)(pos)
+        own = [sp[0] for sp in telemetry.spans()]
+        want = wrapper(pos, solver.mass, solver.softening, solver.G,
+                       solver.kernel, solver.kahan, solver.eps2,
+                       order=cd.slab_sort_key(pos), tm=64, tn=128)
+    assert own == ["dispatch.sort", "dispatch.sync"]
+    assert [sp[0] for sp in telemetry.spans()][2:] == ["dispatch.sync"]
+    assert cd.BRANCHES["two_pass"] == before["two_pass"] + 2
+    assert got.shape == want.shape and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("mode", ["accel", "potential"])

@@ -55,7 +55,7 @@ def jax_run():
 def test_kdk_steps_match_jax_from_one_state(jax_run, impl):
     arrays, s8, mass, _ = jax_run
     state = ti.from_jax_state(arrays, device="cpu")
-    assert state.pos.dtype == torch.float32 and state.sort_order is None
+    assert state.pos.dtype == torch.float32
     solver = DirectGravity(mass, np.full(mass.shape[0], 0.05), impl=impl,
                            device="cpu")
     step_fn = ti.make_kdk_step(ti.make_accel_fn(solver, solver.mass), DT,
@@ -84,12 +84,13 @@ def test_state_round_trip(jax_run):
     for k in ("pos", "vel", "pos_c", "vel_c", "acc", "ext_acc"):
         np.testing.assert_array_equal(back[k], arrays[k])
     assert int(back["step"]) == int(arrays["step"])
-    assert back["sort_order"] is None
+    # the JAX state's slab order is accepted and left to the solver
     order = np.random.default_rng(0).permutation(256).astype(np.int32)
-    with_order = ti.from_jax_state(dict(arrays, sort_order=order),
-                                   device="cpu")
-    np.testing.assert_array_equal(
-        ti.to_numpy_state(with_order)["sort_order"], order)
+    with_order = ti.to_numpy_state(ti.from_jax_state(
+        dict(arrays, sort_order=order), device="cpu"))
+    assert set(with_order) == set(back) and "sort_order" not in back
+    for k in ("pos", "vel", "pos_c", "vel_c", "acc", "ext_acc"):
+        np.testing.assert_array_equal(with_order[k], arrays[k])
 
 
 def test_from_jax_state_default_device_is_the_card(jax_run):
@@ -107,99 +108,58 @@ class _SortedCuda(DirectGravity):
     """Force the sorted two-pass path at a small N (band geometry
     tm=64, tn=128, so the band is a strict subset of the rows)."""
 
-    spatial_sort_active = True
-
-    def accel(self, pos, order=None):
+    def accel(self, pos):
         return cd.cuda_accel(pos, self.mass, self.softening, self.G,
                              self.kernel, self.kahan, self.eps2,
-                             spatial_sort=True, order=order, tm=64, tn=128)
+                             spatial_sort=True, tm=64, tn=128)
 
 
-def test_presort_per_chunk_matches_sort_per_call():
-    """One slab sort per chunk carried in the state matches sorting in
-    every force call (mirrors the JAX package's
-    test_run_chunk_presort_matches_per_call_sort)."""
-    rng = np.random.default_rng(3)
-    n = 3072
-    pos = rng.normal(0, 1, (n, 3))
-    vel = rng.normal(0, 10.0, (n, 3))
-    solver = _SortedCuda(np.full(n, 1e9 / n), np.full(n, 0.02), device="cpu")
+def _sorted_case(seed, n, spread, sigma, soft):
+    rng = np.random.default_rng(seed)
+    solver = _SortedCuda(np.full(n, 1e9 / n), np.full(n, soft),
+                         device="cpu")
     accel_fn = ti.make_accel_fn(solver, solver.mass)
-    step_fn = ti.make_kdk_step(accel_fn, DT, 0.0)
-    before = dict(cd.BRANCHES)
-    per_call = ti.run_chunk(
-        step_fn, ti.init_state(pos, vel, accel_fn, solver.mass, 0.0,
-                               device="cpu"), 4)
-    s1 = ti.init_state(pos, vel, accel_fn, solver.mass, 0.0,
-                       sort_fn=solver.sort_key, device="cpu")
-    presorted = ti.run_chunk(step_fn, s1, 4, presort=True)
-    assert cd.BRANCHES["two_pass"] >= before["two_pass"] + 10
-    order = presorted.sort_order.numpy()
-    assert np.array_equal(np.sort(order), np.arange(n))
-    for field in ("pos", "vel"):
-        assert _rel(getattr(presorted, field),
-                    getattr(per_call, field)) < 1e-6, field
-
-
-class _PerCallSort(_SortedCuda):
-    """The same sorted path, with the order left to every force call."""
-
-    presort_interval = None
-
-
-def _sorted_runs(pos, vel, soft, dt, steps):
-    """(per-call sort, order taken after each drift) final states."""
-    n = pos.shape[0]
-    out = []
-    for cls in (_PerCallSort, _SortedCuda):
-        solver = cls(np.full(n, 1e9 / n), np.full(n, soft), device="cpu")
-        accel_fn = ti.make_accel_fn(solver, solver.mass)
-        sort_fn = solver.sort_key if cls is _SortedCuda else None
-        s0 = ti.init_state(pos, vel, accel_fn, solver.mass, 0.0,
-                           sort_fn=sort_fn, device="cpu")
-        out.append(ti.run_chunk(ti.make_kdk_step(accel_fn, dt, 0.0), s0,
-                                steps))
-    return out
+    s0 = ti.init_state(rng.normal(0, spread, (n, 3)),
+                       rng.normal(0, sigma, (n, 3)), accel_fn, solver.mass,
+                       0.0, device="cpu")
+    return solver, accel_fn, s0
 
 
 def test_order_after_the_drift_equals_sort_per_call_bitwise():
-    """The KDK step takes its slab order from the drifted positions: the
-    order a force call would sort for itself, so the two runs agree bit
-    for bit, and the state carries the order of its own positions."""
-    rng = np.random.default_rng(3)
-    n = 3072
-    pos = rng.normal(0, 1, (n, 3))
-    vel = rng.normal(0, 10.0, (n, 3))
+    """The force of every KDK step runs on the slab order of the step's
+    drifted positions: it equals ``cuda_accel`` given that order bit for
+    bit, so an order carried from before the drift cannot come back
+    unnoticed."""
+    solver, accel_fn, state = _sorted_case(3, 3072, 1.0, 10.0, 0.02)
+    step_fn = ti.make_kdk_step(accel_fn, DT, 0.0)
     before = dict(cd.BRANCHES)
-    per_call, fresh = _sorted_runs(pos, vel, 0.02, DT, 4)
-    assert cd.BRANCHES["two_pass"] == before["two_pass"] + 10
-    assert per_call.sort_order is None
-    assert torch.equal(fresh.sort_order, cd.slab_sort_key(fresh.pos))
-    for field in ("pos", "vel"):
-        assert torch.equal(getattr(fresh, field), getattr(per_call, field))
+    for _ in range(4):
+        state = step_fn(state)
+        want = cd.cuda_accel(state.pos, solver.mass, solver.softening,
+                             solver.G, solver.kernel, solver.kahan,
+                             solver.eps2, spatial_sort=True,
+                             order=cd.slab_sort_key(state.pos), tm=64,
+                             tn=128)
+        assert torch.equal(state.acc, want)
+    assert cd.BRANCHES["two_pass"] == before["two_pass"] + 8
 
 
 def test_order_after_the_drift_keeps_a_hot_cluster_on_two_passes():
     """A compact cluster with a high velocity dispersion and a large dt:
-    on the order taken before the drift the band window outgrows the
-    band, so such a step would fall back to the single pass; the step's
-    own order of its drifted positions keeps every evaluation on the two
-    passes."""
-    rng = np.random.default_rng(7)
-    n, dt, soft, steps = 3072, 1e-3, 0.005, 4
-    pos = rng.normal(0, 0.1, (n, 3))
-    vel = rng.normal(0, 60.0, (n, 3))
-    solver = _SortedCuda(np.full(n, 1e9 / n), np.full(n, soft),
-                         device="cpu")
-    accel_fn = ti.make_accel_fn(solver, solver.mass)
-    step_fn = ti.make_kdk_step(accel_fn, dt, 0.0)
-    s0 = ti.init_state(pos, vel, accel_fn, solver.mass, 0.0,
-                       sort_fn=solver.sort_key, device="cpu")
+    on the order of the positions before the drift the band window
+    outgrows the band, so such a step would fall back to the single pass;
+    the solver's own order of the drifted positions keeps every
+    evaluation on the two passes."""
+    steps = 4
+    solver, accel_fn, s0 = _sorted_case(7, 3072, 0.1, 60.0, 0.005)
+    step_fn = ti.make_kdk_step(accel_fn, 1e-3, 0.0)
     before = dict(cd.BRANCHES)
     s1 = step_fn(s0)
     h = solver.softening.max()
-    _, stale, rows = cd.band_window(s1.pos[s0.sort_order][:, 0], h, 64, 128)
-    _, own, _ = cd.band_window(s1.pos[s1.sort_order][:, 0], h, 64, 128)
+    stale_order = cd.slab_sort_key(s0.pos)
+    _, stale, rows = cd.band_window(s1.pos[stale_order][:, 0], h, 64, 128)
+    _, own, _ = cd.band_window(s1.pos[cd.slab_sort_key(s1.pos)][:, 0], h,
+                               64, 128)
     assert int(own) <= cd.band_rows(rows) < int(stale)
     ti.run_chunk(step_fn, s1, steps - 1)
     assert cd.BRANCHES["single_pass"] == before["single_pass"]
@@ -207,48 +167,19 @@ def test_order_after_the_drift_keeps_a_hot_cluster_on_two_passes():
 
 
 def test_saved_order_sorts_the_saved_positions_and_resumes():
-    """The state a restart saves (``to_numpy_state``) holds a permutation
-    that sorts its own positions along x, and a run resumed from it
-    continues bit for bit."""
-    rng = np.random.default_rng(5)
-    n = 3072
-    solver = _SortedCuda(np.full(n, 1e9 / n), np.full(n, 0.02),
-                         device="cpu")
-    accel_fn = ti.make_accel_fn(solver, solver.mass)
+    """The state a restart saves (``to_numpy_state``) holds no slab order
+    (the solver takes its own), and a run resumed from it continues bit
+    for bit on the sorted path."""
+    _, accel_fn, s0 = _sorted_case(5, 3072, 1.0, 10.0, 0.02)
     step_fn = ti.make_kdk_step(accel_fn, DT, 0.0)
-    s0 = ti.init_state(rng.normal(0, 1, (n, 3)), rng.normal(0, 10.0, (n, 3)),
-                       accel_fn, solver.mass, 0.0, sort_fn=solver.sort_key,
-                       device="cpu")
     s3 = ti.run_chunk(step_fn, s0, 3)
     saved = ti.to_numpy_state(s3)
-    order = saved["sort_order"]
-    assert np.array_equal(np.sort(order), np.arange(n))
-    assert np.all(np.diff(saved["pos"][order, 0]) >= 0)
+    assert "sort_order" not in saved
     whole = ti.run_chunk(step_fn, s3, 2)
     resumed = ti.run_chunk(step_fn, ti.from_jax_state(saved, device="cpu"),
                            2)
-    for field in ("pos", "vel", "sort_order"):
+    for field in ("pos", "vel", "acc"):
         assert torch.equal(getattr(resumed, field), getattr(whole, field))
-
-
-def test_run_chunk_refreshes_order_every_k_steps():
-    n = 64
-    solver = DirectGravity(np.full(n, 1.0), 0.05, impl="torch",
-                           device="cpu")
-    seen = []
-    base = ti.make_kdk_step(ti.make_accel_fn(solver, solver.mass), DT, 0.0)
-
-    def step_fn(state):
-        seen.append(state.sort_order)
-        return base(state)
-
-    rng = np.random.default_rng(1)
-    s0 = ti.init_state(rng.normal(size=(n, 3)), rng.normal(size=(n, 3)),
-                       ti.make_accel_fn(solver, solver.mass), solver.mass,
-                       0.0, device="cpu")
-    ti.run_chunk(step_fn, s0, 5, presort=True, presort_every=2)
-    fresh = [i for i in range(1, 5) if seen[i] is not seen[i - 1]]
-    assert seen[0] is not None and fresh == [2, 4]
 
 
 def test_external_and_extra_hooks_are_added():

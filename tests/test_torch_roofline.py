@@ -325,7 +325,8 @@ def test_tile_config_reaches_the_sorted_path(sorted_case, monkeypatch):
     monkeypatch.setattr(cd, "_self_sorted", spy)
     solver = DirectGravity(gm / G, soft, G=G, impl="cuda",
                            tile_config={"tm": 64, "tn": 128}, device="cpu")
-    assert solver.spatial_sort_active
+    assert solver.impl == "cuda" and cd.uses_spatial_sort(solver.kernel,
+                                                          solver.n)
     before = dict(cd.BRANCHES)
     got = solver.accel(torch.tensor(pos))
     assert seen == [(64, 128)]

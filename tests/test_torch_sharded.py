@@ -11,7 +11,6 @@ the JAX Pallas ring in interpret mode (``mxu=False``; the moment form,
 ``mxu=True``, is held against it in tests/test_torch_moment.py), 2e-6.  Runs in float64 as tests/test_sharded.py: rtol 1e-10,
 atol 1e-12.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -168,7 +167,9 @@ def test_kernel_ring_potential_matches_jax_pallas_ring(slab, layout):
 def test_kernel_ring_uneven_n_and_ghosts(cluster, case):
     """N = 1,000 (125-row blocks, padded to a whole tile of sources) and an
     off-centre N = 601 (7 ghost rows): both against the JAX Pallas ring,
-    and the ghost-padded input gives the unpadded result bitwise."""
+    N rows in and N rows out.  The ring pads inside the solver, with the
+    last row repeated, so the far test sees the last shard's own
+    x-interval; an array at the padded length is not a valid input."""
     if case == "n1000":
         pos, mass, soft = cluster
     else:
@@ -179,18 +180,20 @@ def test_kernel_ring_uneven_n_and_ghosts(cluster, case):
             pos, rng.uniform(0.5, 2.0, n) * 1e5, np.full(n, 0.01))
     n = len(mass)
     port = _port(mass, soft, use_kernels=True)
-    assert port.state_pad == (-n) % 8
+    sd = port._sharded
+    assert sd.npad == n + (-n) % 8
     jx = _jax(mass, soft, pallas=True)
+    seen, far = [], sd._far
+    sd._far = lambda posp: seen.append(posp) or far(posp)
     for mode in ("accel", "potential"):
         got = _eval(port, mode, pos)
         assert got.shape[0] == n
         assert _rel(got, _eval(jx, mode, pos)) < 2e-6
-    if port.state_pad:
-        p = torch.tensor(pos, dtype=torch.float32)
-        padded = torch.cat([p, torch.zeros((port.state_pad, 3))])
-        a_pad = port.accel(padded)
-        assert a_pad.shape[0] == n + port.state_pad
-        assert torch.equal(a_pad[:n], port.accel(p))
+    posp, = seen
+    assert posp.shape == (sd.npad, 3)
+    assert torch.equal(posp[n:], posp[n - 1:n].expand(sd.npad - n, 3))
+    with pytest.raises(ValueError, match="pos shape"):
+        port.accel(torch.zeros((sd.npad + (sd.npad == n), 3)))
 
 
 def test_far_tiles_match_the_jax_ring(slab, jax_pallas_acc):
@@ -246,7 +249,7 @@ def test_sharded_opts_pass_through_and_raise(slab):
     # one-device path on that device
     assert DirectGravity(mass, soft, devices=["cpu"] * 2).impl == "sharded"
     one = DirectGravity(mass, soft, devices=["cpu"])
-    assert one.impl == "torch" and one.state_pad == 0
+    assert one.impl == "torch" and one.devices is None
 
 
 def test_mxu_raises(slab):
@@ -314,26 +317,19 @@ def uneven():
 
 
 def test_ghost_state_and_system_energy(uneven):
-    """N = 517 on 8 shards: shard_state appends 3 zero-mass ghost rows, the
-    padded-length force is the unpadded one bitwise on the real rows, and
-    system_energy of the padded state equals the JAX package's of its own
-    (sharded, padded) state and the one-device value."""
+    """N = 517 on 8 shards: the state holds the 517 rows, the ring's force
+    on them equals the one-device force, and system_energy of the state
+    equals the JAX package's of its own (sharded, ghost-padded) state and
+    the one-device value."""
     pos, mass, soft = uneven
     n = len(mass)
     ring = _port(mass, soft, "float64")
-    assert ring.state_pad == 3
+    assert ring._sharded.npad == n + 3
     accel_fn = make_accel_fn(ring, ring.mass)
     vel = np.random.default_rng(1).normal(0, 10, (n, 3))
     state = init_state(pos, vel, accel_fn, ring.mass, 0.0,
                        dtype=torch.float64, device="cpu")
-    state = dataclasses.replace(state, pos=ring.shard_state(state.pos),
-                                vel=ring.shard_state(state.vel))
-    assert state.pos.shape == (n + 3, 3) and state.vel.shape == (n + 3, 3)
-    assert torch.equal(ring.shard_state(state.pos), state.pos)
-    assert torch.equal(state.pos[n:], torch.zeros(3, 3))
-    a_pad = ring.accel(state.pos)
-    assert a_pad.shape == (n + 3, 3)
-    assert torch.equal(a_pad[:n], ring.accel(state.pos[:n]))
+    assert state.pos.shape == (n, 3) and state.acc.shape == (n, 3)
     ke, pe = system_energy(state, ring, ring.mass)
 
     from nbody_streams_tpu import integrate as jint
@@ -350,6 +346,7 @@ def test_ghost_state_and_system_energy(uneven):
                            device="cpu")
     flat = init_state(pos, vel, make_accel_fn(single, single.mass),
                       single.mass, 0.0, dtype=torch.float64, device="cpu")
+    assert _rel(state.acc, flat.acc) < TOL["float64"]
     ske, spe = system_energy(flat, single, single.mass)
     assert abs(float(pe) - float(spe)) < 1e-13 * abs(float(spe))
     assert float(ke) == pytest.approx(float(ske), rel=1e-15)
@@ -368,7 +365,8 @@ def run_case():
 def test_method_tree_runs_the_ring_end_to_end(run_case, tmp_path, n):
     """run_simulation(method='tree', devices=['cpu'] * 8): the ring (the
     tiles counted), against the JAX package's sharded run and the port's
-    direct path; at N = 517 with 3 ghost rows, stripped from the output."""
+    direct path; at N = 517 the ring pads 3 ghost rows inside the solver
+    and the output holds the 517 rows."""
     xv, m, sp = run_case(n)
     kw = dict(time_start=0.0, time_end=2e-4, dt=2e-5, architecture="cpu",
               save_snapshots=False, verbose=False, precision="float64")
@@ -437,6 +435,51 @@ def test_callback_force_extra_sees_only_real_rows(run_case, tmp_path):
     assert shapes == {((n, 3), (n, 3), (n,))}
     direct = tst.run_nbody(xv, m, 0.0, 1e-4, 2e-5,
                            output_dir=str(tmp_path / "d"), **kw)
+    np.testing.assert_allclose(ring, direct, **RUN_TOL)
+
+
+def test_ring_run_nbody_integrates_n_rows(run_case, tmp_path, monkeypatch):
+    """A ring run at N = 517 on 8 CPU shards, in an external field and with
+    the energy diagnostic on: every state the KDK step takes and every
+    position array the solver sees holds the 517 rows, and the run ends
+    where the one-device run does."""
+    from nbody_streams_tpu_torch import run as trun
+    from nbody_streams_tpu_torch.potentials import NFWPotential
+
+    n = 517
+    xv, m, _ = run_case(n)
+    shapes = []
+    make = trun.make_kdk_step
+
+    def spy_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def spied(state):
+            shapes.append(tuple(state.pos.shape))
+            return step(state)
+
+        return spied
+
+    monkeypatch.setattr(trun, "make_kdk_step", spy_make)
+    seen = []
+    ring_eval = tsh.ShardedDirect._sharded_eval
+
+    def spy_eval(self, mode, pos):
+        seen.append(tuple(pos.shape))
+        return ring_eval(self, mode, pos)
+
+    monkeypatch.setattr(tsh.ShardedDirect, "_sharded_eval", spy_eval)
+    kw = dict(softening=0.003, architecture="cpu", precision="float64",
+              save_snapshots=False, verbose=False, debug_energy=True,
+              external_potential=NFWPotential(mass=1e8, scaleRadius=0.05))
+    ring = trun.run_nbody(xv, m, 0.0, 1e-4, 2e-5, devices=EIGHT,
+                          output_dir=str(tmp_path / "r"), **kw)
+    assert shapes == [(n, 3)] * 5
+    # the first force, one a step, and the energy at the start
+    assert seen == [(n, 3)] * 7
+    direct = trun.run_nbody(xv, m, 0.0, 1e-4, 2e-5,
+                            output_dir=str(tmp_path / "d"), **kw)
+    assert ring.shape == (n, 6)
     np.testing.assert_allclose(ring, direct, **RUN_TOL)
 
 

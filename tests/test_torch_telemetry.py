@@ -4,8 +4,9 @@ A 256-particle satellite in an NFW host with friction (centre every 5
 steps) runs 12 KDK steps on the sorted path (its threshold lowered to the
 run's N) with a restart every 6 steps: without a profiler it records no
 span; under ``torch.profiler`` it records every span of the step path,
-nested as the layers call each other, one ``dispatch.gravity`` and one
-``dispatch.sync`` an evaluation, one ``friction.centre`` a refresh, and
+nested as the layers call each other, one ``dispatch.gravity`` and,
+inside it, one ``dispatch.sort`` and one ``dispatch.sync`` an evaluation,
+one ``friction.centre`` a refresh, and
 none of them in the profiler's own events.  Under
 ``telemetry.annotating()`` (how ``run_nbody(profile_dir=)`` holds its
 profiler) each span is a ``record_function`` in the profiler's trace too,
@@ -99,7 +100,7 @@ def test_spans_of_a_traced_run(satellite):
         "entry.start": 2,              # run_simulation's and run_nbody's
         "integrator.chunk": 2,         # to steps 6 and 12
         "entry.boundary": 3,           # steps 6 and 12, the final fetch
-        "dispatch.sort": STEPS,        # the order refreshed every step
+        "dispatch.sort": evaluations,  # each sorted call sorts its input
         "dispatch.gravity": evaluations,
         "dispatch.sync": evaluations,
         "field.force": evaluations,
@@ -113,16 +114,17 @@ def test_spans_of_a_traced_run(satellite):
         chain = _chain(spans, i)
         if name in ("friction.density", "friction.centre"):
             assert chain[0] == "friction.step"
-        if name == "dispatch.sync":
+        if name in ("dispatch.sort", "dispatch.sync"):
             assert chain[0] == "dispatch.gravity"
         if name.startswith(("dispatch.", "field.", "friction.")):
             # the first evaluation is the call's start, the rest chunks'
-            first = step == 0 and name != "dispatch.sort"
+            first = step == 0
             assert chain[-1] == ("entry.start" if first
                                  else "integrator.chunk"), (name, step)
         if parent >= 0:
             assert spans[parent][1] <= start and end <= spans[parent][2]
-        if name in ("dispatch.sync", "friction.centre", "friction.density"):
+        if name in ("dispatch.sort", "dispatch.sync", "friction.centre",
+                    "friction.density"):
             assert step == spans[parent][4]      # inherited
     # every step of the run evaluates once, each under its own step number
     steps = [s[4] for s in spans if s[0] == "dispatch.gravity"]
@@ -133,7 +135,8 @@ def test_spans_of_a_traced_run(satellite):
 
 def test_dispatch_sync_one_a_sorted_call():
     """``_self_sorted`` at a small geometry: one ``dispatch.sync`` inside
-    each call, whichever branch it takes."""
+    each call, whichever branch it takes, after the ``dispatch.sort`` of
+    the call's own slab order."""
     g = torch.Generator().manual_seed(3)
     pos = torch.randn(300, 3, generator=g)
     gm = torch.full((300,), 1e-3)
@@ -143,7 +146,8 @@ def test_dispatch_sync_one_a_sorted_call():
         for mode in ("acc", "pot"):
             cd._self_sorted(pos, gm, soft, "spline", True, mode, 1e-12,
                             tm=64, tn=64)
-    assert [s[0] for s in telemetry.spans()] == ["dispatch.sync"] * 2
+    assert [s[0] for s in telemetry.spans()] == ["dispatch.sort",
+                                                 "dispatch.sync"] * 2
 
 
 def test_spans_stay_out_of_another_profilers_events(satellite):
