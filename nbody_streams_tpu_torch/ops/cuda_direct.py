@@ -43,19 +43,23 @@ single pass and the two-set calls), ``band``, ``moment`` (kernel M as the
 base pass), ``moment_2set`` (kernel M's two-set form, the ring's far
 tiles) and ``fast`` (kernel F as the base pass, acc or pot).
 ``BRANCHES`` counts the sorted path's calls by branch (``two_pass``,
-``single_pass``) and sums their widest band window and band width in
-source rows (``window_rows``, ``band_rows``).
+``single_pass``), the two-pass calls whose band was widened past the
+static one (``widened``), and sums their widest band window and the band
+width they ran in source rows (``window_rows``, ``band_rows``).
 
 The host side mirrors the TPU path: for the spline at N >= 16384 the
-particles are sorted along x (``slab_sort_key``), a band window of source
-rows is found for each target tile, and when every window fits the static
-band width ``nb`` the Newtonian base pass (``skip_band``) plus the spline
-band pass run; otherwise the single-pass spline kernel does.  Every pair is
-evaluated exactly once with its exact factor either way.  The base pass
-takes kernel M with ``tile={'mxu': True}`` and kernel F with ``fast``;
-both centre the coordinates first.  By default it stays in the s*dx form
-(``mxu=None`` is the VPU form here, where the TPU defaults to its matrix
-unit: ROADMAP Queue 3).
+particles are sorted along x (``slab_sort_key``) and a band window of
+source rows is found for each target tile.  The band is the static width
+``band_rows`` or, where the widest window outgrows it, that window, up to
+``BAND_MAX_SHARE`` of the source rows: the Newtonian base pass
+(``skip_band``) plus the spline band pass run over it.  A wider window
+takes the single-pass spline kernel.  The TPU path keeps its band static
+(XLA needs it as a shape) and falls back as soon as a window outgrows it.
+Every pair is evaluated exactly once with its exact factor either way.
+The base pass takes kernel M with ``tile={'mxu': True}`` and kernel F
+with ``fast``; both centre the coordinates first.  By default it stays in
+the s*dx form (``mxu=None`` is the VPU form here, where the TPU defaults
+to its matrix unit: ROADMAP Queue 3).
 
 Masses arrive pre-multiplied by G.  Pair rule ``h_eff = max(h_i, h_j)``
 and ``eps2`` regularisation match ``ops/pairwise.py`` (the oracle).
@@ -83,6 +87,16 @@ TN = 512
 BLOCK = 64
 # The spline takes the sorted two-pass path from this N on.
 SORT_MIN_N = 16384
+# The widest band, as a share of the source rows, at which the two passes
+# still run.  Per pair on the H100 (PERF.md section 5 and the kernel
+# table, at N = 2^20): the Newtonian base pass (row 1) 5.4e-13 s, the
+# spline band (row 3) 1.12e-12 s, the single-pass spline (row 2) 1.10e-12
+# s.  A band of a share f of the rows costs (1 - f) 5.4e-13 + f 1.12e-12 a
+# pair against 1.10e-12: the two passes win up to f = 0.56 / 0.58 ~ 0.96.
+# At 0.75 they still cost 0.89 of the single pass, which leaves room for
+# their extra launches (the band and the combines) where a pass is short:
+# ~0.3 ms at SORT_MIN_N.
+BAND_MAX_SHARE = 0.75
 
 # Source-stream splits (split_count): a wave of the card is
 # RESIDENT_BLOCKS blocks of BLOCK a SM (48 registers a thread; the
@@ -98,13 +112,16 @@ MIN_SPLIT_TILES = 8
 LAUNCHES = {"base": 0, "single": 0, "band": 0, "moment": 0,
             "moment_2set": 0, "fast": 0}
 #: Which branch the sorted path picked (``two_pass`` or the ``single_pass``
-#: fallback), counted where it picks, so its launches are in LAUNCHES; and
-#: beside them two running sums over the same calls: ``window_rows``, each
-#: call's widest band window in source rows (the width the branch read
-#: brings to the host), and ``band_rows``, each call's band width ``nb``.
-#: Their ratio says how far the windows outgrow the band.
-BRANCHES = {"two_pass": 0, "single_pass": 0, "window_rows": 0,
-            "band_rows": 0}
+#: fallback), counted where it picks, so its launches are in LAUNCHES;
+#: ``widened``, the two-pass calls whose band was widened past
+#: ``band_rows``; and beside them two running sums over the same calls:
+#: ``window_rows``, each call's widest band window in source rows (the
+#: width the branch read brings to the host), and ``band_rows``, the band
+#: width ``nb`` each call ran (``band_rows(rows)`` on the single pass).
+#: Their ratio says how far the windows outgrow the band: above 1 the
+#: calls take the single pass.
+BRANCHES = {"two_pass": 0, "single_pass": 0, "widened": 0,
+            "window_rows": 0, "band_rows": 0}
 
 _MODES = {"acc": 0, "pot": 1}
 
@@ -684,7 +701,8 @@ def band_window(x, h_max, tm=TM, tn=TN):
 
 
 def band_rows(rows):
-    """The static band width in source rows (~6% of rows, floor 12)."""
+    """The static band width in source rows (~6% of rows, floor 12): the
+    narrowest band the sorted path runs."""
     return min(max(12, rows // 16), rows)
 
 
@@ -695,12 +713,13 @@ def _self_sorted(pos, gmass, soft, kind, kahan, mode, eps2, tm=None,
 
     ``order`` may be any permutation (a stale slab order included): the
     band windows are recomputed from the actual positions on every call,
-    so a bad order only widens them until the single-pass fallback takes
-    over.  With ``order=None`` (every solver call) the order is taken
-    here from ``pos``, in a ``dispatch.sort`` span: a stale one would
-    cost more than the argsort, since at the N = 65,536 bench case an
-    order ~10 steps old already forces the fallback, and at the MW + LMC
-    satellite's 1M an order one drift old does (PERF.md).
+    so a bad order only widens them, and the band with them, until the
+    single-pass fallback takes over.  With ``order=None`` (every solver
+    call) the order is taken here from ``pos``, in a ``dispatch.sort``
+    span: a stale one would cost more than the argsort, since at the N =
+    65,536 bench case an order ~10 steps old already outgrows the static
+    band, and at the MW + LMC satellite's 1M an order one drift old does
+    (PERF.md).
 
     The base pass: with ``mxu`` (acc) kernel M, folded or not
     (``fold_mass``); with ``fast`` kernel F (acc and pot), which needs the
@@ -745,8 +764,14 @@ def _self_sorted(pos, gmass, soft, kind, kahan, mode, eps2, tm=None,
     # comparison is read on the host: one device sync per call.
     with span("dispatch.sync"):
         width = int(max_width)
+    # a window wider than the static band widens it, while the two passes
+    # cost less than the single pass; a window that fits keeps it
+    widened = width > nb and width <= BAND_MAX_SHARE * rows
+    if widened:
+        nb = width
     BRANCHES["window_rows"] += width
     BRANCHES["band_rows"] += nb
+    BRANCHES["widened"] += int(widened)
     if width <= nb:
         BRANCHES["two_pass"] += 1
         start = first.clamp(0, rows - nb).to(torch.int32).contiguous()

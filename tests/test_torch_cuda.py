@@ -386,23 +386,31 @@ def test_satellite_steps_take_the_two_pass_path(dev):
     assert rel / np.abs(want).max() < 3e-6
 
 
-@pytest.mark.cuda
-def test_king_cluster_steps_take_the_single_pass(dev):
-    """The stream deployment's King cluster (W0 = 5, r_c = 0.02 kpc,
-    5e6 Msun, h = 0.004 kpc) at N = 262,144 in the static McMillan17
-    field, dt = 5e-4, 3 steps: its core outgrows the band, so every
-    evaluation takes the single pass and the band windows sum to more
-    rows than the band; the final force is within 3e-6 of the float64 sum
-    at 4,096 targets."""
+def _king_cluster(n):
+    """The stream deployment's King cluster (W0 = 5, r_c = 0.02 kpc, 5e6
+    Msun) of ``n`` bodies at (14, 0, 6) kpc, (30, 150, -10) km/s."""
     from nbody_streams_tpu_torch.fast_sims.king import sample_king
+
+    xv, m = sample_king(n, mass=5e6, r_core=0.02, W0=5.0, seed=2)
+    xv[:, :3] += np.array([14.0, 0.0, 6.0])
+    xv[:, 3:] += np.array([30.0, 150.0, -10.0])
+    return xv, m
+
+
+@pytest.mark.cuda
+def test_king_cluster_steps_take_two_passes_on_a_widened_band(dev):
+    """The stream deployment's King cluster (h = 0.004 kpc) at N = 262,144
+    in the static McMillan17 field, dt = 5e-4, 3 steps: its core outgrows
+    the static band, so every evaluation widens the band to its widest
+    window and takes the two passes (the band each call ran is its
+    window); the final force is within 3e-6 of the float64 sum at 4,096
+    targets."""
     from nbody_streams_tpu_torch.potentials import make_potential
     from nbody_streams_tpu_torch.potentials.mwlmc import mw_lmc_data_dir
     from nbody_streams_tpu_torch.run import run_copies
 
     n, steps, dt, t0, h = 262_144, 3, 5e-4, 0.0, 0.004
-    xv, m = sample_king(n, mass=5e6, r_core=0.02, W0=5.0, seed=2)
-    xv[:, :3] += np.array([14.0, 0.0, 6.0])
-    xv[:, 3:] += np.array([30.0, 150.0, -10.0])
+    xv, m = _king_cluster(n)
     mass, soft = torch.as_tensor(m), torch.full((n,), h, dtype=torch.float64)
     field = make_potential(
         file=mw_lmc_data_dir() / "McMillan17_streams.ini", device=dev)
@@ -416,11 +424,40 @@ def test_king_cluster_steps_take_the_single_pass(dev):
     last = run_chunk(step_fn, state, steps)
     got = solver.accel(last.pos)
     took = {k: cd.BRANCHES[k] - before[k] for k in before}
-    assert took["single_pass"] == steps + 2 and took["two_pass"] == 0
-    assert took["window_rows"] > took["band_rows"] > 0
+    assert took["two_pass"] == took["widened"] == steps + 2
+    assert took["single_pass"] == 0
+    assert took["window_rows"] == took["band_rows"] > 0
     idx = np.random.default_rng(0).choice(n, 4096, replace=False)
     want = chip_smoke.direct64_at(last.pos, G * mass, soft, idx, dev,
                                   "spline", "acc", chunk=(1024, 131072))
+    rel = np.abs(got[idx].double().cpu().numpy() - want).max()
+    assert rel / np.abs(want).max() < 3e-6
+
+
+@pytest.mark.cuda
+def test_king_cluster_at_a_million_runs_its_window_as_the_band(dev):
+    """The King cluster at the stream cell's N = 2^20 (h = 0.004 kpc), one
+    evaluation: the widest window outgrows the static band (128 of 2,048
+    rows) but not BAND_MAX_SHARE of the rows, so the call widens the band
+    to the window and takes the two passes, within 3e-6 of the float64
+    sum at 4,096 targets."""
+    n, h = 1 << 20, 0.004
+    xv, m = _king_cluster(n)
+    mass, soft = torch.as_tensor(m), torch.full((n,), h, dtype=torch.float64)
+    solver = DirectGravity(mass, soft, G=G, kernel="spline", device=dev)
+    pos = torch.as_tensor(xv[:, :3], dtype=torch.float32, device=dev)
+    _, width, rows = cd.band_window(pos[cd.slab_sort_key(pos), 0], h)
+    width = int(width)
+    assert cd.band_rows(rows) < width <= cd.BAND_MAX_SHARE * rows
+    before = dict(cd.BRANCHES)
+    got = solver.accel(pos)
+    took = {k: cd.BRANCHES[k] - before[k] for k in before}
+    assert (took["two_pass"], took["single_pass"], took["widened"]) == (1, 0,
+                                                                        1)
+    assert took["band_rows"] == took["window_rows"] == width
+    idx = np.random.default_rng(0).choice(n, 4096, replace=False)
+    want = chip_smoke.direct64_at(pos, G * mass, soft, idx, dev, "spline",
+                                  "acc", chunk=(1024, 131072))
     rel = np.abs(got[idx].double().cpu().numpy() - want).max()
     assert rel / np.abs(want).max() < 3e-6
 

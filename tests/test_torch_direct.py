@@ -419,6 +419,55 @@ def test_self_sorted_fallback_matches_pallas(sorted_case):
     assert _rel(got, want) < TOL
 
 
+@pytest.fixture(scope="module")
+def king_case():
+    """The stream deployment's King cluster (W0 = 5, r_c = h = 0.02) at N =
+    4,096: with tm=64, tn=128 its widest band window (19 of 32 rows)
+    outgrows the static band (12 rows), so the port widens the band to
+    the window and runs the two passes, where the JAX package falls back
+    to its single pass."""
+    from nbody_streams_tpu_torch.fast_sims.king import sample_king
+
+    xv, m = sample_king(4096, mass=5e6, r_core=0.02, W0=5.0, seed=2)
+    return (xv[:, :3].astype(np.float32), (G * m).astype(np.float32),
+            np.full(4096, 0.02, np.float32))
+
+
+@pytest.mark.parametrize("mode,form", [
+    ("acc", {}), ("pot", {}), ("acc", {"mxu": True}),
+    ("acc", {"mxu": True, "fold_mass": False}), ("acc", {"fast": True}),
+    ("pot", {"fast": True})],
+    ids=["acc", "pot", "acc-mxu", "acc-mxu-unfolded", "acc-fast", "pot-fast"])
+def test_widened_two_passes_match_pallas_single_pass_and_fp64(king_case, mode,
+                                                              form):
+    """The widened band's two passes, in the VPU base pass and the moment
+    forms (kernel M folded and not, kernel F), against the JAX package's
+    ``_pallas_self_sorted`` in the same form (its single pass there: its
+    band is static) and the float64 oracle, both within TOL."""
+    pos, gm, soft = king_case
+    order = cd.slab_sort_key(_t(pos))
+    _, width, rows = cd.band_window(_t(pos)[order, 0], float(soft.max()),
+                                    **SORT_KW)
+    assert cd.band_rows(rows) < int(width) <= cd.BAND_MAX_SHARE * rows
+    before = _branches()
+    got = cd._self_sorted(_t(pos), _t(gm), _t(soft), "spline", True, mode,
+                          1e-15, **SORT_KW, **form)
+    took = {k: cd.BRANCHES[k] - before[k] for k in before}
+    assert (took["two_pass"], took["single_pass"], took["widened"]) == (1, 0,
+                                                                        1)
+    assert took["band_rows"] == took["window_rows"] == int(width)
+    jform = {k: v for k, v in form.items() if k != "fold_mass"}
+    want = jpd._pallas_self_sorted(_j(pos), _j(gm), _j(soft), "spline", True,
+                                   mode, 1e-15, interpret=True, max_sub=8,
+                                   **SORT_KW, **jform)
+    assert _rel(got, want) < TOL
+    oracle = j_forces if mode == "acc" else j_potential
+    ref = oracle(np.asarray(pos, np.float64), np.asarray(gm, np.float64),
+                 np.asarray(soft, np.float64), G=1.0, precision="float64",
+                 kernel="spline")
+    assert _rel(got, ref) < TOL
+
+
 def test_stale_shuffled_and_drifter_orders_stay_exact(sorted_case,
                                                       jax_sorted_acc):
     """Any permutation is exact on the sorted path: the band windows are
