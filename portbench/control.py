@@ -2,8 +2,10 @@
 program as the configuration states it (the lower readings the limits are
 set from) or with ``--precision float32`` (the control: float32 without
 the Kahan compensations the configuration's float32_kahan keeps) or with
-``--fault <name> ...`` (each fault of ``faults.py`` in turn, planted in its
-step), on the card, at the cell's own size and a short window.
+``--fault <name> ...`` (each fault in turn: one of ``faults.py``, planted
+in the KDK step, or one of the cell's configuration module's ``FAULTS``,
+such as a configuration's own control), on the card, at the cell's own
+size and a short window.
 
     python3 portbench/control.py --workload <cell> --seconds 3 --seeds 1 2 3 [--precision float32] [--fault unchanged.late half.late]
 
@@ -30,7 +32,7 @@ def main(argv=None):
 
     for fault in args.fault:
         for seed in args.seeds:
-            with faults.planted(fault):
+            with faults.planted(fault, args.workload):
                 line, numbers = harness.run(args.workload, seed,
                                             args.seconds, False,
                                             precision=args.precision)

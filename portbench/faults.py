@@ -11,6 +11,11 @@ one step cannot show it, and only the window's own steps can):
 * ``altered``: one particle's answer is altered where the step makes it;
 * ``stale.late``: from the second step on, a step keeps the acceleration
   it was given in place of the one it computed (a buffer not refreshed).
+
+A configuration's module may add faults of its own, such as a contraction
+in TF32: ``FAULTS``, a mapping from a name to a factory, called with no
+arguments, of a context manager that plants the fault.  The names here
+come first.
 """
 from __future__ import annotations
 
@@ -47,10 +52,19 @@ FAULTS = {**_BASE, **{f"{k}.late": v for k, v in _BASE.items()},
 
 
 @contextlib.contextmanager
-def planted(name):
-    """Run the program with fault ``name`` in its KDK step (None: none)."""
+def planted(name, workload=None):
+    """Run the program with fault ``name`` (None: none): one of ``FAULTS``
+    in its KDK step, or else one of the ``FAULTS`` of the configuration
+    module of cell ``workload``."""
     if name is None:
         yield
+        return
+    if name not in FAULTS:
+        from portbench import harness
+
+        w = harness.workload(harness.manifest(), workload)
+        with harness.config(w["config"])[1].FAULTS[name]():
+            yield
         return
     from nbody_streams_tpu_torch import run as prun
 

@@ -8,31 +8,37 @@ Each metric is a reader ``metrics/<metric>.py``; the cell reports the
 ``end_to_end`` metrics (``--trace 0``) or the ``per_layer`` ones
 (``--trace 1``) that ``BENCHMARK.json`` lists for it.
 
-The window is one call of the program's public entry,
-``run_simulation(..., method='direct')``, from the cell's initial
-conditions, with the program's defaults and snapshots off: its start (the
-solver, the field's copy, the first force) and its end (the restart file,
-the state back on the host) are inside it.  Its K steps (one more than a
-multiple of 10, at least 21) are ``--seconds`` times the cell's step
-rate, so that it lasts about ``--seconds`` and holds the same work in
+The window is one call of the program's public entry, ``run_simulation``,
+from the cell's initial conditions, with the configuration's ``method``,
+``precision`` and, where it names one, ``kernel``, its module's
+``sim_kwargs``, the program's other defaults and snapshots off: its start
+(the solver, the field's copy, the first force) and its end (the restart
+file, the state back on the host) are inside it.  Its K steps (one more
+than a multiple of 10, at least 21) are ``--seconds`` times the cell's
+step rate, so that it lasts about ``--seconds`` and holds the same work in
 every run.  The window writes its restart file at step K - 1 as well
 (``restart_interval=K - 1``), and the harness keeps that state as the
 program writes it.  The check (``reference/check.py``) then judges, against
 the float64 reference, the first step from the initial conditions (the
 warm-up call, which also builds or loads every kernel) and the window's
 own last step, from its state at K - 1 to its final state.
+
+A configuration names a ``kernel`` only for a method that takes one
+(``method='scf'`` refuses it).  Its module may also define
+``reference_gravity(cfg, device)``, the check's self-gravity (a callable
+with the signature of ``reference.gravity.accel``, that softened direct
+sum where the module has none), and ``FAULTS``, its own control faults
+(``faults.planted``).
 """
 from __future__ import annotations
 
 import contextlib
-import copy
 import gc
 import importlib.util
 import json
 import math
 import os
 import shutil
-import statistics
 import sys
 import tempfile
 import time
@@ -190,11 +196,12 @@ def run(cell, seed, seconds, trace, device="cuda", precision=None,
     species = [Species(name=k, N=m, mass=np.full(m, mk), softening=h)
                for k, m, mk, h in inputs["species"]]
     field = cmod.program_field(cfg, dev)
-    kw = dict(method=cfg["method"], kernel=cfg["kernel"],
-              precision=precision or cfg["precision"],
+    kw = dict(method=cfg["method"], precision=precision or cfg["precision"],
               architecture="gpu" if dev.type == "cuda" else "cpu",
               external_potential=field, save_snapshots=False,
               verbose=False, **cmod.sim_kwargs(cfg, inputs))
+    if "kernel" in cfg:
+        kw["kernel"] = cfg["kernel"]
     out = Path(tempfile.mkdtemp(prefix=f"portbench-{cell}-"))
 
     def call(tag, t0, t1, **extra):
@@ -244,9 +251,6 @@ def run(cell, seed, seconds, trace, device="cuda", precision=None,
     if trace:
         rec["trace"] = tracing.read(prof)
         del prof
-        if field is not None:
-            rec["force_ms"] = _force_ms(field, out / "window" / "restart.npz",
-                                        t_end, dev)
     del field
     gc.collect()
     if dev.type == "cuda":
@@ -281,29 +285,12 @@ def run(cell, seed, seconds, trace, device="cuda", precision=None,
     return line, numbers
 
 
-def _force_ms(field, restart, t, device, calls=7):
-    """Median host ms of one ``force`` of the run's field copy (float32
-    on ``device``) at the window's final positions, each call ending in a
-    synchronise; two calls first warm it."""
-    pot = copy.deepcopy(field).to(device=device, dtype=torch.float32)
-    with np.load(restart) as f:
-        pos = torch.as_tensor(f["phase_space"][:, :3], dtype=torch.float32,
-                              device=device)
-    times = []
-    for i in range(calls + 2):
-        _sync(device)
-        start = time.perf_counter()
-        pot.force(pos, t)
-        _sync(device)
-        times.append(time.perf_counter() - start)
-    return statistics.median(times[2:]) * 1e3
-
-
 def _check(cfg, cmod, inputs, out, before, seed, dt, t_a, t0w, t_end, dev,
            n_sample):
     """The check numbers of the first step and of the window's last step
     (from ``before``, what the window wrote at step K - 1), by the float64
-    reference."""
+    reference: the configuration's own self-gravity where its module has
+    ``reference_gravity``, else the softened direct sum."""
     from portbench import ics
     from portbench.reference import check
 
@@ -315,6 +302,8 @@ def _check(cfg, cmod, inputs, out, before, seed, dt, t_a, t0w, t_end, dev,
     sample = torch.randperm(n, generator=g)[:min(n, n_sample)].sort()[0]
     sample = sample.to(dev)
     field, make_friction = cmod.reference_terms(cfg, dev)
+    own = getattr(cmod, "reference_gravity", None)
+    gravity = own(cfg, dev) if own is not None else None
 
     def state(d):
         return {k: (torch.as_tensor(v, **f64) if k != "t" else v)
@@ -340,5 +329,6 @@ def _check(cfg, cmod, inputs, out, before, seed, dt, t_a, t0w, t_end, dev,
         fric = (make_friction(float(inputs["mass"].sum()), t_mid)
                 if make_friction else None)
         numbers[name] = check.step(state(a), state(b), sample, mass, soft,
-                                   ics.G, dt, field=field, fric=fric)
+                                   ics.G, dt, field=field, fric=fric,
+                                   gravity=gravity)
     return numbers

@@ -97,7 +97,7 @@ def test_readers_return_nothing_without_a_trace():
            "setup_s": 3.0, "branches": {"two_pass": 0, "single_pass": 0}}
     for name in ("device.idle_share.iso", "gravity_roofline.field",
                  "step_mfu.iso", "step.launches.iso",
-                 "gravity.single_pass_share.field", "field.force_ms"):
+                 "gravity.single_pass_share.field"):
         assert harness.reader(name).read(rec) is None
     assert harness.reader("step_ms").read(rec) == 50.0
     assert harness.reader("setup_s").read(rec) == 3.0
